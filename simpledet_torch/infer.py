@@ -1,0 +1,119 @@
+"""Serve a detector: uint8 image batches in, per-image detections out.
+
+Counterpart of `detection_infer_speed.py --include-nms`: builds the test
+detector from a config (seeded random weights), normalises uint8 NHWC batches
+on the device, runs the test forward and the per-class NMS, and returns
+boxes, scores and classes per image.
+
+    python -m simpledet_torch.infer --config config/faster_r50v1_fpn_1x.py \
+        --shape 800 1333 --batch 2 --count 20
+
+prints ms/image with the card's name and power limit.
+"""
+import argparse
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from simpledet_torch.dsl import detector_from_config
+from simpledet_torch.eval.postprocess import per_class_nms
+from simpledet_torch.ops.image import device_normalize
+
+
+class Detector:
+    """The config's test path on one device."""
+
+    def __init__(self, config, *, device="cuda", seed=0):
+        self.model, self.spec = detector_from_config(config, device=device,
+                                                     seed=seed)
+        self.device = next(self.model.parameters()).device
+        t = self.spec.test
+        self.score_thr = t.min_det_score if t.min_det_score is not None \
+            else 0.05
+        self.nms_thr = (t.nms.thr if t.nms else None) or 0.5
+        self.max_det = t.max_det_per_image or 100
+
+    @torch.no_grad()
+    def detect(self, images, im_info, *, score_thr=None):
+        """images [B, H, W, 3] uint8, im_info [B, 3] = (h', w', scale) ->
+        (boxes [B, max_det, 4], scores, classes, valid), padded rows
+        marked by valid = False."""
+        images = torch.as_tensor(images).to(self.device, non_blocking=True)
+        im_info = torch.as_tensor(im_info, dtype=torch.float32).to(
+            self.device, non_blocking=True)
+        if self.spec.pixel_norm is not None:
+            images = device_normalize(images, im_info, *self.spec.pixel_norm)
+        out = self.model(images.float(), im_info, mode="test")
+        return per_class_nms(
+            out["cls_score"], out["bbox_xyxy"],
+            score_thr=self.score_thr if score_thr is None else score_thr,
+            nms_thr=self.nms_thr, max_det=self.max_det)
+
+    def __call__(self, images, im_info, **kw):
+        """List of per-image dicts {"boxes", "scores", "classes"} (valid rows
+        only, on the device)."""
+        boxes, scores, classes, valid = self.detect(images, im_info, **kw)
+        return [{"boxes": b[v], "scores": s[v], "classes": c[v]}
+                for b, s, c, v in zip(boxes, scores, classes, valid)]
+
+
+def full_fp32():
+    """fp32 configs run in fp32: no TF32 in cuDNN convolutions (PyTorch's
+    default allows it) nor in matrix products."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def card_name_and_power():
+    """nvidia-smi's `name, power.limit` line for card 0."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def synthetic_batch(batch, h, w, seed):
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    im_info = np.tile(np.float32([[h, w, 1.0]]), (batch, 1))
+    return torch.from_numpy(images), torch.from_numpy(im_info)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--shape", nargs=2, type=int, default=[800, 1333])
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--count", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    full_fp32()
+    det = Detector(args.config, device=args.device, seed=args.seed)
+    h, w = args.shape
+    images, im_info = synthetic_batch(args.batch, h, w, args.seed)
+    images = images.to(det.device)
+
+    def sync():
+        if det.device.type == "cuda":
+            torch.cuda.synchronize(det.device)
+
+    det.detect(images, im_info)          # warm-up: kernel build, cuDNN plans
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(args.count):
+        det.detect(images, im_info)
+    sync()
+    dt = time.perf_counter() - t0
+    n_img = args.count * args.batch
+    where = card_name_and_power() if det.device.type == "cuda" else "cpu"
+    print(f"{dt / n_img * 1000:.3f} ms per image ({n_img / dt:.2f} img/s) "
+          f"at {h}x{w}, batch {args.batch}, incl. per-class NMS, fp32 without "
+          f"TF32, on {where}")
+
+
+if __name__ == "__main__":
+    main()
