@@ -57,6 +57,29 @@ def stages(det, images, im_info):
             ("per_class_nms", nms)]
 
 
+def device_profile(fn, count, top=15):
+    """Trace `count` calls of fn with torch.profiler: (host ms per call,
+    device busy ms per call, {kernel: device ms per call} of the `top`
+    kernels). Device-side events only (kernels, copies): an operator's row
+    repeats the device time of the kernels it launched."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / count
+    kernels = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / count
+    return traced_ms, busy_ms, {
+        e.key[:80]: e.self_device_time_total / 1e3 / count
+        for e in kernels[:top]}
+
+
 @torch.no_grad()
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -92,21 +115,8 @@ def main(argv=None):
     wall = (time.perf_counter() - t0) * 1e3 / args.count
     stage_ms = {k: v / args.count for k, v in total.items()}
 
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act, acc_events=True) as prof:
-        t1 = time.perf_counter()
-        for _ in range(args.count):
-            det.detect(images, im_info)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t1) * 1e3 / args.count
-    # device-side events only (kernels, copies): an operator's row repeats
-    # the device time of the kernels it launched
-    kernels = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.count
+    traced_ms, busy_ms, top = device_profile(
+        lambda: det.detect(images, im_info), args.count)
     print(json.dumps({
         "card": card_name_and_power(), "shape": [h, w], "batch": args.batch,
         "count": args.count,
@@ -115,9 +125,7 @@ def main(argv=None):
         "traced_request_ms": traced_ms,
         "device_busy_ms_per_request": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / traced_ms),
-        "top_kernels_ms_per_request": {
-            e.key[:80]: e.self_device_time_total / 1e3 / args.count
-            for e in kernels[:15]},
+        "top_kernels_ms_per_request": top,
     }, indent=1))
 
 

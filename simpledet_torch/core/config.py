@@ -6,7 +6,9 @@ A config file imports the repo-root shims (`symbol.builder`,
 runs, `read_config` serves every module under those roots as a stand-in that
 only records what the config asked for: each component's class name and param
 class, the normaliser type, and Norm2DImage's mean and std. It restores
-`sys.modules` afterwards and returns a `ConfigSpec` that `dsl.py` builds from.
+`sys.modules` afterwards and returns a `ConfigSpec` that `dsl.py` builds from:
+the test symbol's, or with is_train=True the train symbol's, with what the
+trainer reads (the frozen-parameter patterns, OptimizeParam, batch_image).
 
 `patch_config_as_nothrow` and `load_config` are copies of the JAX package's
 (`simpledet_tpu/core/config.py`): a missing attribute on a config class reads
@@ -186,20 +188,26 @@ class Component:
 
 @dataclass
 class ConfigSpec:
-    """What the port builds a detector from."""
+    """What the port builds a detector (and, for training, its optimizer)
+    from."""
     detector: str
     components: dict               # role -> Component
     test: Any                      # TestParam (nothrow)
     pixel_norm: Optional[tuple]    # (mean, std) deferred to the device
     normalizers: tuple             # normaliser types the components name
+    is_train: bool = False
+    fixed_param: tuple = ()        # ModelParam.pretrain.fixed_param
+    optimize: Any = None           # OptimizeParam (nothrow)
+    batch_image: Optional[int] = None   # General.batch_image
 
 
 _ROLES = ("backbone", "neck", "rpn_head", "roi_extractor", "bbox_head")
 
 
-def read_config(path):
-    """Run `config/<name>.py`'s get_config(is_train=False) against stand-in
-    shims and return the ConfigSpec of its test symbol."""
+def read_config(path, is_train=False):
+    """Run `config/<name>.py`'s get_config(is_train) against stand-in shims
+    and return the ConfigSpec of its test symbol, or of its train symbol
+    with is_train=True."""
     saved = {n: m for n, m in sys.modules.items() if _is_hidden(n)}
     for name in saved:
         del sys.modules[name]
@@ -207,16 +215,20 @@ def read_config(path):
     sys.meta_path.insert(0, finder)
     try:
         cfg = load_config(path)
-        out = cfg.get_config(is_train=False)
+        out = cfg.get_config(is_train=is_train)
     finally:
         sys.meta_path.remove(finder)
         for name in [n for n in sys.modules if _is_hidden(n)]:
             del sys.modules[name]
         sys.modules.update(saved)
-    model_param, test_param, transform = out[6], out[8], out[9]
-    sym = model_param.test_symbol
+    general, model_param, optimize = (patch_config_as_nothrow(out[0]),
+                                      patch_config_as_nothrow(out[6]),
+                                      patch_config_as_nothrow(out[7]))
+    test_param, transform = out[8], out[9]
+    kind = "train" if is_train else "test"
+    sym = getattr(model_param, f"{kind}_symbol")
     if not isinstance(sym, Symbol):
-        raise NotImplementedError(f"{path}: no test symbol")
+        raise NotImplementedError(f"{path}: no {kind} symbol")
     components = {}
     for role, comp in zip(_ROLES, sym.components):
         components[role] = Component(
@@ -227,6 +239,11 @@ def read_config(path):
         and isinstance(c.param.normalizer, _Normalizer)}))
     pixel_norm = next(((t.mean, t.std) for t in transform or ()
                        if isinstance(t, Norm2DImage)), None)
+    pretrain = model_param.pretrain
     return ConfigSpec(detector=sym.detector, components=components,
                       test=patch_config_as_nothrow(test_param),
-                      pixel_norm=pixel_norm, normalizers=norms)
+                      pixel_norm=pixel_norm, normalizers=norms,
+                      is_train=is_train,
+                      fixed_param=tuple(pretrain.fixed_param or ())
+                      if pretrain else (),
+                      optimize=optimize, batch_image=general.batch_image)

@@ -55,12 +55,13 @@ def build_detector(spec, *, depth=None):
                       p_bbox)
 
 
-def detector_from_config(path, *, device="cuda", seed=0):
-    """(model, spec): the config's test detector with seeded random weights,
-    channels_last, in eval mode, on `device`."""
+def detector_from_config(path, *, device="cuda", seed=0, is_train=False):
+    """(model, spec): the config's test detector (or, with is_train, its train
+    detector, in train mode) with seeded random weights, channels_last, on
+    `device`."""
     device = resolve_device(device)
-    spec = read_config(path)
+    spec = read_config(path, is_train=is_train)
     model = build_detector(spec)
     model.init_weights(torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
-    return model.eval(), spec
+    return model.train(is_train), spec

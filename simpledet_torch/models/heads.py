@@ -1,5 +1,6 @@
-"""2fc box head and its test-time prediction (counterpart of
-simpledet_tpu/models/heads.py::Bbox2fcHead and bbox_head_predict).
+"""2fc box head, its loss and its test-time prediction (counterpart of
+simpledet_tpu/models/heads.py::Bbox2fcHead, bbox_head_loss and
+bbox_head_predict).
 
 RoI features arrive as [B, R, P, P, C] and are flattened in HWC order, as in
 the JAX package, so fc1's weight is the transposed Flax kernel. The logits run
@@ -11,6 +12,7 @@ from torch.nn import functional as F
 
 from simpledet_torch.models.init import fan_in_uniform_, normal_
 from simpledet_torch.ops.bbox import clip_boxes, decode_boxes
+from simpledet_torch.ops.losses import smooth_l1
 
 
 class Bbox2fcHead(nn.Module):
@@ -39,6 +41,18 @@ class Bbox2fcHead(nn.Module):
         normal_(self.bbox_delta.weight, 0.001, gen)
         for m in (self.fc1, self.fc2, self.cls_logit, self.bbox_delta):
             m.bias.zero_()
+
+
+def bbox_head_loss(cls_logit, bbox_delta, label, bbox_target, bbox_weight,
+                   smooth_l1_scalar=1.0):
+    """cls: softmax CE summed over the b * r rois, divided by b * r; reg:
+    smooth-L1 times weight, summed, divided by b * r."""
+    b, r = label.shape
+    logp = torch.log_softmax(cls_logit, dim=-1)
+    cls_ll = torch.gather(logp, -1, label.long()[..., None])[..., 0]
+    reg = bbox_weight * smooth_l1(bbox_delta - bbox_target, smooth_l1_scalar)
+    return {"bbox_cls_loss": -cls_ll.sum() / (b * r),
+            "bbox_reg_loss": reg.sum() / (b * r)}
 
 
 def bbox_head_predict(cls_logit, bbox_delta, rois, im_info, *, bbox_mean,

@@ -1,9 +1,9 @@
-"""FPN RPN: the shared conv head and the test-time proposals.
+"""FPN RPN: the shared conv head, its losses and the proposals.
 
-Counterpart of `simpledet_tpu/models/rpn.py` (RpnConvHead and the test half of
-FPNRpnHead). The head's cls and reg convs run in fp32. Logits leave the convs
-as NCHW [B, kA, H, W]; they are permuted to NHWC before the reshape to
-[B, H*W*A, k], so anchors run in (y, x, a) order as in the JAX package.
+Counterpart of `simpledet_tpu/models/rpn.py` (RpnConvHead and FPNRpnHead).
+The head's cls and reg convs run in fp32. Logits leave the convs as NCHW
+[B, kA, H, W]; they are permuted to NHWC before the reshape to [B, H*W*A, k],
+so anchors run in (y, x, a) order as in the JAX package.
 """
 import torch
 from torch import nn
@@ -12,7 +12,9 @@ from torch.nn import functional as F
 from simpledet_torch.models.init import normal_
 from simpledet_torch.ops.anchors import generate_anchor_grid
 from simpledet_torch.ops.bbox import clip_boxes, decode_boxes
+from simpledet_torch.ops.losses import smooth_l1
 from simpledet_torch.ops.nms import NEG_INF, nms, top_k_stable
+from simpledet_torch.targets.anchor_target import batched_anchor_target
 from simpledet_torch.targets.proposal import top_proposals
 
 
@@ -71,6 +73,39 @@ class FPNRpnHead:
             self._anchors[key] = torch.from_numpy(grid).to(device)
         return self._anchors[key]
 
+    def loss(self, gen, level_outputs, gt_bbox, im_info, deterministic=False):
+        """(losses, aux): softmax CE over the sampled anchors, divided by
+        their count over the batch, and smooth-L1 (sigma 3) over the kept
+        positives, divided by batch * image_anchor."""
+        p = self.p.anchor_assign
+        keys = level_keys(level_outputs)
+        cls_logit = torch.cat([to_nhwc_rows(level_outputs[k][0], 2)
+                               for k in keys], 1)
+        reg_delta = torch.cat([to_nhwc_rows(level_outputs[k][1], 4)
+                               for k in keys], 1)
+        anchors = torch.cat([
+            self.anchors(s, level_outputs[k][0].shape[2:], cls_logit.device)
+            for s, k in zip(self.strides, keys)])
+        with torch.no_grad():
+            label, target, weight = batched_anchor_target(
+                gen, anchors, gt_bbox, im_info[:, :2],
+                allowed_border=p.allowed_border, neg_thr=p.neg_thr,
+                pos_thr=p.pos_thr, min_pos_thr=p.min_pos_thr,
+                image_anchor=p.image_anchor, fg_fraction=p.pos_fraction,
+                deterministic=deterministic,
+                ignore_regions=bool(self.p.ignore_regions))
+
+        valid = label >= 0
+        logp = torch.log_softmax(cls_logit, dim=-1)
+        pick = torch.where(label == 1, logp[..., 1], logp[..., 0])
+        n_valid = valid.sum().clamp(min=1)
+        cls_loss = -torch.where(valid, pick, torch.zeros_like(pick)).sum() \
+            / n_valid
+        reg_loss = (weight * smooth_l1(reg_delta - target, 3.0)).sum() / (
+            gt_bbox.shape[0] * p.image_anchor)
+        return ({"rpn_cls_loss": cls_loss, "rpn_reg_loss": reg_loss},
+                {"rpn_label": label, "rpn_cls_logit": cls_logit})
+
     def level_candidates(self, level_outputs, im_info):
         """Per level: softmax fg score, decode, clip, min-size filter and
         top-`pre`, padded with NEG_INF. Returns (boxes [B, L, pre, 4],
@@ -100,7 +135,9 @@ class FPNRpnHead:
         return torch.stack(boxes_l, 1), torch.stack(scores_l, 1)
 
     def proposals(self, level_outputs, im_info):
-        """Test-time proposals: (boxes [B, post, 4], scores [B, post])."""
+        """Proposals with the config's pre/post counts (the train config's
+        2000/2000, the test config's 1000/1000): (boxes [B, post, 4],
+        scores [B, post])."""
         boxes, scores = self.level_candidates(level_outputs, im_info)
         return self.nms_and_select(boxes, scores)
 

@@ -24,6 +24,29 @@ def bbox_overlaps(boxes, query_boxes):
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+def _ctr_wh(boxes):
+    w = boxes[..., 2] - boxes[..., 0] + 1.0
+    h = boxes[..., 3] - boxes[..., 1] + 1.0
+    return boxes[..., 0] + 0.5 * (w - 1.0), boxes[..., 1] + 0.5 * (h - 1.0), w, h
+
+
+def encode_boxes(ex_rois, gt_rois, means=None, stds=None):
+    """Regression targets from ex_rois to gt_rois, both [..., N, 4] ->
+    [..., N, 4], normalised by (means, stds) when given."""
+    ex_cx, ex_cy, ex_w, ex_h = _ctr_wh(ex_rois)
+    gt_cx, gt_cy, gt_w, gt_h = _ctr_wh(gt_rois)
+    dx = (gt_cx - ex_cx) / (ex_w + 1e-14)
+    dy = (gt_cy - ex_cy) / (ex_h + 1e-14)
+    dw = torch.log(gt_w.clamp(min=1e-14) / ex_w.clamp(min=1e-14))
+    dh = torch.log(gt_h.clamp(min=1e-14) / ex_h.clamp(min=1e-14))
+    t = torch.stack([dx, dy, dw, dh], dim=-1)
+    if means is not None:
+        t = t - torch.tensor(means, dtype=t.dtype, device=t.device)
+    if stds is not None:
+        t = t / torch.tensor(stds, dtype=t.dtype, device=t.device)
+    return t
+
+
 def decode_boxes(boxes, deltas, means=None, stds=None,
                  xform_clip=BBOX_XFORM_CLIP):
     """Apply deltas [..., N, 4*C] to boxes [..., N, 4] -> [..., N, 4*C]."""
@@ -33,10 +56,7 @@ def decode_boxes(boxes, deltas, means=None, stds=None,
         d = d * torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
     if means is not None:
         d = d + torch.tensor(means, dtype=deltas.dtype, device=deltas.device)
-    w = boxes[..., 2] - boxes[..., 0] + 1.0
-    h = boxes[..., 3] - boxes[..., 1] + 1.0
-    cx = boxes[..., 0] + 0.5 * (w - 1.0)
-    cy = boxes[..., 1] + 0.5 * (h - 1.0)
+    cx, cy, w, h = _ctr_wh(boxes)
     dw = d[..., 2].clamp(max=xform_clip)
     dh = d[..., 3].clamp(max=xform_clip)
     pred_cx = d[..., 0] * w[..., None] + cx[..., None]

@@ -7,7 +7,8 @@ follow the Flax names, so a leaf `a/b/kernel` becomes `a.b.weight`:
   - a Dense kernel [in, out] becomes a Linear weight [out, in];
   - `bias` stays `bias`; FrozenBN `scale` / `bias` land on its buffers.
 Every leaf must map onto a parameter or buffer of the model with the same
-shape, and every parameter and buffer must be given one.
+shape, and every parameter and buffer must be given one. `flax_path` is the
+inverse name map.
 """
 import numpy as np
 import torch
@@ -37,6 +38,13 @@ def convert_leaf(path, value):
         raise ValueError(f"{'/'.join(path)}: unknown leaf {leaf!r}")
     return ".".join(mods + [leaf]), torch.from_numpy(
         np.array(value, dtype=np.float32, order="C"))
+
+
+def flax_path(torch_name):
+    """'/'-joined Flax path of a torch parameter or buffer name:
+    `a.b.weight` -> `a/b/kernel`; `bias` and `scale` keep their names."""
+    *mods, leaf = torch_name.split(".")
+    return "/".join(mods + ["kernel" if leaf == "weight" else leaf])
 
 
 def from_flax(params, model):

@@ -19,6 +19,10 @@ def test_reading_and_building_imports_no_jax():
         "model, spec = detector_from_config('config/faster_r50v1_fpn_1x.py',"
         " device='cpu')\n"
         "import simpledet_torch.infer, simpledet_torch.weights\n"
+        "import simpledet_torch.train\n"
+        "train, _ = detector_from_config('config/faster_r50v1_fpn_1x.py',"
+        " device='cpu', is_train=True)\n"
+        "assert train.training and train.rpn.p.proposal.post_nms_top_n == 2000\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(sum(p.numel() for p in model.parameters()))\n")

@@ -1,14 +1,17 @@
 """The port's multilevel RoIAlign against the JAX package on the CPU: the
-crop path, the Pallas kernel in interpret mode and the gather oracle."""
+crop path, the Pallas kernel in interpret mode and the gather oracle, forward
+and backward."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from simpledet_tpu.kernels.roi_align import (_batched_crop_roi_align,
                                              batched_multilevel_roi_align)
-from simpledet_tpu.kernels.roi_align_pallas import batched_roi_align_pallas
+from simpledet_tpu.kernels.roi_align_pallas import (_fwd as pallas_fwd,
+                                                    batched_roi_align_pallas)
 from simpledet_torch.kernels import roi_align as kroi
 
 STRIDES = (4, 8, 16, 32)
@@ -88,3 +91,120 @@ def test_long_side_clamp_moves_the_level():
     lvl = kroi.roi_level_index(rois.float(), level_hw, STRIDES, 224, 4, 7)
     # area rule alone: 2, 2, 3, 2; a long side over 44 cells moves up
     assert lvl.tolist() == [0, 2, 3, 0]
+
+
+# ---------------------------------------------------------------- backward
+
+
+def tied_pyramid(rng, b=2, h=96, w=160, c=8):
+    """Half the channels random; the other half non-positive with 4 x 4
+    patches of exact zeros, so that many bins have samples tied at their max
+    (0) in every formulation of the interpolation, while untied samples stay
+    strictly below it."""
+    feats = pyramid(rng, b, h, w, c)
+    for f in feats:
+        hh, ww = f.shape[1:3]
+        zero = rng.rand(b, -(-hh // 4), -(-ww // 4)) < 0.4
+        zero = np.repeat(np.repeat(zero, 4, 1), 4, 2)[:, :hh, :ww]
+        f[..., c // 2:] = np.where(zero[..., None], 0.0,
+                                   -np.abs(f[..., c // 2:]))
+    return feats
+
+
+def _rois(rng):
+    r = mixed_rois(rng)
+    return np.stack([r, r[::-1]])
+
+
+def _plain_vjp(feats, rois, g):
+    """Plain forward with codes, then the plain backward."""
+    fs = [torch.from_numpy(f) for f in feats]
+    _, codes = kroi.multilevel_roi_align_plain(fs, torch.from_numpy(rois),
+                                               STRIDES, with_codes=True)
+    grads = kroi.multilevel_roi_align_bwd_plain(
+        torch.from_numpy(g), codes, torch.from_numpy(rois),
+        [f.shape[1:3] for f in feats], strides=STRIDES, dtype=torch.float32)
+    return [x.numpy() for x in grads], codes.numpy()
+
+
+def _close_to_scale(got, want, rtol):
+    for g, w in zip(got, want):
+        scale = max(np.abs(w).max(), 1e-6)
+        err = np.abs(g - w).max() / scale
+        assert err <= rtol, f"relative error {err:.3g} > {rtol}"
+
+
+# A gradient is a sum of tap shares over overlapping rois, summed in
+# another order on each side: 1e-5 of each level's max |grad|. A wrong tie
+# split or tap is off by a share, O(1) of that scale.
+GRAD_RTOL = 1e-5
+
+
+def test_plain_tie_codes_match_pallas_mask():
+    """The codes' bits are the Pallas forward's sample mask (interpret mode)
+    on every non-empty bin; empty bins get code 0."""
+    rng = np.random.RandomState(5)
+    feats, rois = tied_pyramid(rng), _rois(rng)
+    _, codes = kroi.multilevel_roi_align_plain(
+        [torch.from_numpy(f) for f in feats], torch.from_numpy(rois),
+        STRIDES, with_codes=True)
+    codes = codes.numpy()
+    _, res = pallas_fwd([jnp.asarray(f) for f in feats], jnp.asarray(rois),
+                        STRIDES, 7, 224, 4, "max", None, True)
+    empty, mask = np.asarray(res[7]), np.asarray(res[8]) > 0  # [N,2,2,P,P,C]
+    want = sum(mask[:, sy, sx].astype(np.uint8) << (2 * sy + sx)
+               for sy in range(2) for sx in range(2))
+    want = np.where(empty[..., None], 0, want)
+    np.testing.assert_array_equal(codes, want)
+    popcount = sum((codes >> s) & 1 for s in range(4))
+    assert (popcount > 1).mean() > 0.05 and (popcount == 0).any()
+
+
+def test_plain_backward_matches_pallas_and_crop_vjp():
+    """On tied inputs and the mixed roi set: the plain backward against
+    jax.vjp of the Pallas kernel (interpret mode) and of the crop path."""
+    rng = np.random.RandomState(6)
+    feats, rois = tied_pyramid(rng), _rois(rng)
+    g = rng.randn(*rois.shape[:2], 7, 7, 8).astype(np.float32)
+    got, _ = _plain_vjp(feats, rois, g)
+    jf, jr = [jnp.asarray(f) for f in feats], jnp.asarray(rois)
+    for fn in (lambda fs: batched_roi_align_pallas(fs, jr, STRIDES, 7, 224,
+                                                   4, "max", None, True),
+               lambda fs: _batched_crop_roi_align(fs, jr, STRIDES,
+                                                  out_size=7)):
+        _, vjp = jax.vjp(fn, jf)
+        (want,) = vjp(jnp.asarray(g))
+        _close_to_scale(got, [np.asarray(w) for w in want], GRAD_RTOL)
+    assert all(np.abs(x).sum() > 0 for x in got[:3])
+
+
+def test_plain_backward_equals_autograd_of_plain_forward():
+    """The explicit scatter equals torch.autograd through the plain forward,
+    whose amax splits tied gradients evenly."""
+    rng = np.random.RandomState(7)
+    feats, rois = tied_pyramid(rng), _rois(rng)
+    g = rng.randn(*rois.shape[:2], 7, 7, 8).astype(np.float32)
+    got, _ = _plain_vjp(feats, rois, g)
+    fs = [torch.from_numpy(f).requires_grad_() for f in feats]
+    out = kroi.multilevel_roi_align_plain(fs, torch.from_numpy(rois), STRIDES)
+    want = torch.autograd.grad(out, fs, torch.from_numpy(g))
+    _close_to_scale(got, [w.numpy() for w in want], 1e-6)
+    # and the autograd Function on CPU tensors is the plain pair
+    fs = [torch.from_numpy(f).requires_grad_() for f in feats]
+    out = kroi.multilevel_roi_align(fs, torch.from_numpy(rois), STRIDES)
+    via_fn = torch.autograd.grad(out, fs, torch.from_numpy(g))
+    for a, b in zip(via_fn, got):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_empty_bins_give_zero_gradient():
+    """Rois beyond the map have only empty bins: zero output, code 0 and no
+    gradient anywhere; rois get no gradient."""
+    rng = np.random.RandomState(8)
+    feats = [torch.from_numpy(f).requires_grad_() for f in pyramid(rng)]
+    rois = torch.tensor([[[700, 500, 900, 650], [1000, 900, 1200, 1000]]],
+                        dtype=torch.float32).repeat(2, 1, 1).requires_grad_()
+    out = kroi.multilevel_roi_align(feats, rois, STRIDES)
+    assert not out.detach().any()
+    out.backward(torch.ones_like(out))
+    assert all(not f.grad.any() for f in feats) and rois.grad is None
