@@ -11,11 +11,17 @@ Phases, each fatal on error:
   3. hold the NMS and RoIAlign-forward kernels against their plain PyTorch
      versions at the serving path's shapes and time both with CUDA events
      beside the kernel's bound;
+     NMS edge cases (n = 1, 63, 64, 65, 2000, a suppression chain across
+     every block boundary, all invalid, all identical, no overlaps) give
+     keep flags identical to the plain version's; kept rows per problem
+     printed (the scan's chain length);
   3b. the RoIAlign forward with tie codes and the RoIAlign backward at the
      training shapes (B=2, R=512, C=256), fp32 and bf16, on random features
-     and on features of constant 4 x 4 patches (many tied bins): codes
-     identical to the plain version's, gradients against the plain backward;
-     times beside bounds;
+     and on features of constant 4 x 4 patches (many tied bins), with mixed,
+     identical, whole-image/extreme-aspect and edge rois: codes identical to
+     the plain version's, gradients against the plain backward; the first
+     backward design's global atomics counted from the codes (the present
+     one issues none); times beside bounds;
   4. serve requests of 2 synthetic uint8 800 x 1333 images through
      `simpledet_torch.infer.Detector` built from config/faster_r50v1_fpn_1x.py
      (full width, seeded random weights), one of them with score_thr=0 so the
@@ -113,17 +119,44 @@ def environment():
 # ---------------------------------------------------------------- phase 3
 
 
-def nms_problems(rng, p, n, dev):
+def nms_problems(rng, p, n):
     """p score-sorted pools of n boxes in an 800 x 1333 image, clustered so
-    that suppression chains form, 90% valid."""
+    that suppression chains form, 90% valid (numpy)."""
     pick = rng.randint(0, 40, n)
     ctr = rng.uniform([0, 0], [W, H], (p, 40, 2))[:, pick]
     wh = np.exp(rng.uniform(np.log(8), np.log(400), (p, 40, 2)))[:, pick]
     ctr = ctr + rng.normal(0, 0.1, (p, n, 2)) * wh
     wh = wh * np.exp(rng.normal(0, 0.1, (p, n, 2)))
     boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], 2).astype(np.float32)
-    valid = rng.rand(p, n) < 0.9
-    return (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
+    return boxes, rng.rand(p, n) < 0.9
+
+
+def nms_edge_cases():
+    """{name: (boxes [P, n, 4] f32, valid [P, n] bool, thr)}, numpy problems
+    at the edges of the block-wise scan (blocks of 64 rows)."""
+    rng = np.random.RandomState(3)
+    cases = {f"clustered n={n}": (*nms_problems(rng, 2, n), 0.5)
+             for n in (1, 63, 64, 65, 2000)}
+    # each box suppresses only the next (IoU 0.47 with it, 0.16 with the one
+    # after); in the second problem box 0 stands apart, so the kept rows are
+    # the odd ones and row 64k-1 removes row 64k across every block boundary
+    n = 2000
+    x = np.arange(n, dtype=np.float32) * 4
+    chain = np.stack([x, 0 * x, x + 10, 0 * x + 10], 1)
+    apart = chain.copy()
+    apart[0] = [1e4, 0, 1e4 + 10, 10]
+    cases["chain across blocks"] = (np.stack([chain, apart]),
+                                    np.ones((2, n), bool), 0.3)
+    boxes, _ = nms_problems(rng, 2, 130)
+    cases["all invalid"] = (boxes, np.zeros((2, 130), bool), 0.5)
+    cases["all identical"] = (np.tile(np.float32([10, 20, 60, 90]),
+                                      (2, 130, 1)),
+                              np.ones((2, 130), bool), 0.5)
+    i = np.arange(200, dtype=np.float32)
+    grid = np.stack([i % 20 * 20, i // 20 * 20, i % 20 * 20 + 10,
+                     i // 20 * 20 + 10], 1)          # 11 px boxes 20 apart
+    cases["no overlaps"] = (grid[None], np.ones((1, 200), bool), 0.0)
+    return cases
 
 
 def check_nms(dev):
@@ -138,7 +171,8 @@ def check_nms(dev):
     for p, n, thr, serving in ((B * 5, 1000, 0.7, True),
                                (B * 80, 1000, 0.5, True),
                                (B * 5, 2000, 0.7, False)):
-        boxes, valid = nms_problems(rng, p, n, dev)
+        boxes, valid = (torch.from_numpy(a).to(dev)
+                        for a in nms_problems(rng, p, n))
         got = knms.nms_keep_sorted(boxes, valid, thr)
         torch.cuda.synchronize()
         want = knms.nms_keep_sorted_plain(boxes, valid, thr)
@@ -154,9 +188,12 @@ def check_nms(dev):
                      + NMS_OPS_PER_BOX * nv).sum())
         nbytes = p * n * (16 + 1 + 1)
         bms, by = bound_ms(nbytes, ops)
-        log(f"nms {p}x{n}@{thr}: identical keep ({int(got.sum())} kept); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms"
-            f" ({by})")
+        kept = got.sum(1)
+        log(f"nms {p}x{n}@{thr}: identical keep ({int(kept.sum())} kept; "
+            f"kept rows per problem, the scan's chain: mean "
+            f"{float(kept.float().mean()):.1f}, min {int(kept.min())}, max "
+            f"{int(kept.max())}; {-(-n // 64)} blocks); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by})")
         if serving:
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("ops", ops),
                          ("nbytes", nbytes), ("diff", diff)):
@@ -164,6 +201,17 @@ def check_nms(dev):
         else:
             train = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          max_abs_err=float(diff))
+    for name, (boxes, valid, thr) in nms_edge_cases().items():
+        boxes, valid = torch.from_numpy(boxes).to(dev), torch.from_numpy(
+            valid).to(dev)
+        got = knms.nms_keep_sorted(boxes, valid, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, knms.nms_keep_sorted_plain(boxes, valid,
+                                                           thr)):
+            raise AssertionError(f"NMS edge case {name}: keep flags differ "
+                                 "from the plain version")
+        log(f"nms edge case {name} ({boxes.shape[0]}x{boxes.shape[1]}@{thr})"
+            f": identical keep, kept rows per problem {got.sum(1).tolist()}")
     bms, by = bound_ms(tot["nbytes"], tot["ops"])
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms,
                 bound_by=by, max_abs_err=float(tot["diff"]), train=train)
@@ -251,100 +299,142 @@ def patches(rng, feats, size=4):
     return out
 
 
+def roi_edge_cases(rng, r=R_TRAIN, b=B, h=H, w=W):
+    """{name: [b, r, 4] f32 numpy rois} at the edges of the backward's design:
+    identical rois (every roi adds to the same cells), whole-image and
+    extreme-aspect rois (the most distinct taps, 4P per axis), rois on and
+    past the maps' edges."""
+    def tiled(rows, jitter):
+        rows = np.asarray(rows, np.float32)
+        out = rows[np.arange(b * r) % len(rows)].reshape(b, r, 4)
+        return (out + rng.uniform(-jitter, jitter, out.shape)).astype(
+            np.float32)
+
+    return {
+        "identical": tiled([[96, 160, 150, 210]], 0),
+        "wide": tiled([[0, 0, w - 1, h - 1], [0, 300, w - 1, 330],
+                       [600, 0, 620, h - 1], [0, 0, w - 1, 40],
+                       [10, 0, 50, h - 1], [200, 100, 1200, 700]], 2),
+        "edges": tiled([[0, 0, 3, 3], [w - 4, h - 4, w - 1, h - 1],
+                        [0, h - 4, 3, h - 1], [w - 4, 0, w - 1, 3],
+                        [-20, -20, 10, 10], [w - 10, h - 10, w + 50, h + 50],
+                        [0, 0, w - 1, 8], [w + 60, h + 60, w + 90, h + 90],
+                        [0, 100, 30, 400], [w - 31, 200, w - 1, 500]], 1),
+    }
+
+
+def first_design_atomics(codes):
+    """Global atomic instructions the first RoIAlign-backward design (one
+    block per roi, atomics into fp32 maps) issued on these tie codes: one
+    scalar fp32 add per tied sample, tap and channel. The present design issues none: each output tile is summed in
+    shared memory and written once."""
+    return 4 * int(sum(((codes >> s) & 1).sum(dtype=torch.int64)
+                       for s in range(4)))
+
+
 def check_roi_align_train(dev):
-    """Forward with tie codes and backward at the training shapes. Codes and
-    (rounded) outputs identical to the plain version; fp32 gradients within
-    1e-5 of each level's max |grad| of the plain backward (atomics reorder
-    the sums); bf16 within one bf16 ulp of the plain fp32 result rounded
-    once. Times on the random input."""
+    """Forward with tie codes and backward at the training shapes, on mixed
+    rois and on the edge cases of `roi_edge_cases`, with random and patchy
+    (tied) features. Codes and (rounded) outputs identical to the plain
+    version's; fp32 gradients within 1e-5 of each level's max |grad| of the
+    plain backward (the sums run in another order); bf16 within one bf16 ulp of
+    the plain fp32 result rounded once. Times on the mixed rois and random
+    features."""
     from simpledet_torch.kernels import roi_align as kroi
 
     rng = np.random.RandomState(2)
     rand32 = [torch.from_numpy(rng.randn(B, h, w, C).astype(np.float32))
               .to(dev) for h, w in LEVEL_HW]
-    rois = mixed_rois(rng, dev, R_TRAIN)
+    roi_sets = {"mixed": mixed_rois(rng, dev, R_TRAIN)}
     inputs = {"random": rand32, "patches": patches(rng, rand32)}
+    roi_sets.update({k: torch.from_numpy(v).to(dev)
+                     for k, v in roi_edge_cases(rng).items()})
     fwd, bwd = {}, {}
-    for (kind, feats32), dt in [(i, d) for i in inputs.items()
-                                for d in (torch.float32, torch.bfloat16)]:
-        name = str(dt).split(".")[-1]
-        feats = [f.to(dt) for f in feats32]
-        out, codes = kroi.roi_align_fwd_cuda(feats, rois, STRIDES,
-                                             with_codes=True)
-        torch.cuda.synchronize()
-        want_out, want_codes = kroi.multilevel_roi_align_plain(
-            [f.float() for f in feats], rois, STRIDES, with_codes=True)
-        if not torch.equal(codes, want_codes):
-            raise AssertionError(f"tie codes {kind} {name}: "
-                                 f"{int((codes != want_codes).sum())} differ")
-        fwd_err = float((out.float() - want_out.to(dt).float()).abs().max())
-        if fwd_err:
-            raise AssertionError(f"roi_align forward {kind} {name} differs "
-                                 f"by up to {fwd_err:.3g}")
-        g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(
-            dev, dt)
-        got = kroi.roi_align_bwd_cuda(g, codes, rois, LEVEL_HW,
-                                      strides=STRIDES, dtype=dt)
-        torch.cuda.synchronize()
-        want = kroi.multilevel_roi_align_bwd_plain(
-            g.float(), codes, rois, LEVEL_HW, strides=STRIDES,
-            dtype=torch.float32)
-        err = rel = 0.0
-        for gl, wl in zip(got, want):
-            ref = wl.to(dt).float()
-            scale = float(wl.abs().max())
-            if dt == torch.float32:
-                tol = dict(rtol=0, atol=1e-5 * scale)
-            else:
-                tol = dict(rtol=2 ** -7, atol=1e-5 * scale)
-            torch.testing.assert_close(gl.float(), ref, **tol)
-            err = max(err, float((gl.float() - ref).abs().max()))
-            rel = max(rel, float((gl.float() - ref).abs().max())
-                      / max(scale, 1e-30))
-        popcount = sum((codes.int() >> s) & 1 for s in range(4))
-        tied = float((popcount > 1).float().mean())
-        log(f"roi_align train {kind} {name}: codes identical ({tied:.1%} of "
-            f"values tied), backward max_abs_err {err:.3g} "
-            f"({rel:.3g} of the level's max |grad|)")
-        if kind != "random":
-            continue
-        isz = feats[0].element_size()
-        touched = touched_bytes(kroi, rois, isz)
-        ms = cuda_ms(lambda: kroi.roi_align_fwd_cuda(
-            feats, rois, STRIDES, with_codes=True), 20)
-        ms_nocodes = cuda_ms(lambda: kroi.roi_align_fwd_cuda(
-            feats, rois, STRIDES), 20)
-        plain_ms = cuda_ms(lambda: kroi.multilevel_roi_align_plain(
-            feats, rois, STRIDES, with_codes=True), 3, 1)
-        nbytes = touched + rois.numel() * 4 + out.numel() * isz + codes.numel()
-        bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * out.numel())
-        log(f"roi_align_fwd with codes {name} B={B} R={R_TRAIN} C={C}: "
-            f"kernel {ms:.4f} ms (without codes {ms_nocodes:.4f}), plain "
-            f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, "
-            f"{nbytes / 1e6:.1f} MB)")
-        fwd[name] = dict(ms=ms, ms_without_codes=ms_nocodes,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         max_abs_err=fwd_err)
-        ms = cuda_ms(lambda: kroi.roi_align_bwd_cuda(
-            g, codes, rois, LEVEL_HW, strides=STRIDES, dtype=dt), 20)
-        plain_ms = cuda_ms(lambda: kroi.multilevel_roi_align_bwd_plain(
-            g, codes, rois, LEVEL_HW, strides=STRIDES, dtype=dt), 3, 1)
-        # the function reads g, the codes and the rois and writes every
-        # level's gradient map, each once, in the features' dtype
-        maps = sum(B * h * w * C for h, w in LEVEL_HW) * isz
-        nbytes = g.numel() * isz + codes.numel() + rois.numel() * 4 + maps
-        ops = (BWD_OPS_PER_OUT * out.numel()
-               + BWD_OPS_PER_TIED_SAMPLE * float(popcount.sum()))
-        bms, by = bound_ms(nbytes, ops)
-        # not in the bound: this design's fp32 atomics read and write each
-        # touched gradient cell
-        atomic_bytes = 2 * touched_bytes(kroi, rois, 4)
-        log(f"roi_align_bwd {name} B={B} R={R_TRAIN} C={C}: kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, "
-            f"{nbytes / 1e6:.1f} MB); the atomics' read-modify-write spans "
-            f"{atomic_bytes / 1e6:.1f} MB of touched fp32 cells")
-        bwd[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         max_abs_err=err, atomic_rmw_bytes=atomic_bytes)
+    for rname, rois in roi_sets.items():
+        for (kind, feats32), dt in [(i, d) for i in inputs.items()
+                                    for d in (torch.float32, torch.bfloat16)]:
+            name = str(dt).split(".")[-1]
+            case = f"{rname} rois, {kind} {name}"
+            feats = [f.to(dt) for f in feats32]
+            out, codes = kroi.roi_align_fwd_cuda(feats, rois, STRIDES,
+                                                 with_codes=True)
+            torch.cuda.synchronize()
+            want_out, want_codes = kroi.multilevel_roi_align_plain(
+                [f.float() for f in feats], rois, STRIDES, with_codes=True)
+            if not torch.equal(codes, want_codes):
+                raise AssertionError(f"tie codes {case}: "
+                                     f"{int((codes != want_codes).sum())} "
+                                     "differ")
+            fwd_err = float((out.float() - want_out.to(dt).float()).abs()
+                            .max())
+            if fwd_err:
+                raise AssertionError(f"roi_align forward {case} differs by "
+                                     f"up to {fwd_err:.3g}")
+            g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(
+                dev, dt)
+            got = kroi.roi_align_bwd_cuda(g, codes, rois, LEVEL_HW,
+                                          strides=STRIDES, dtype=dt)
+            torch.cuda.synchronize()
+            want = kroi.multilevel_roi_align_bwd_plain(
+                g.float(), codes, rois, LEVEL_HW, strides=STRIDES,
+                dtype=torch.float32)
+            err = rel = 0.0
+            for gl, wl in zip(got, want):
+                ref = wl.to(dt).float()
+                scale = float(wl.abs().max())
+                if dt == torch.float32:
+                    tol = dict(rtol=0, atol=1e-5 * scale)
+                else:
+                    tol = dict(rtol=2 ** -7, atol=1e-5 * scale)
+                torch.testing.assert_close(gl.float(), ref, **tol)
+                err = max(err, float((gl.float() - ref).abs().max()))
+                rel = max(rel, float((gl.float() - ref).abs().max())
+                          / max(scale, 1e-30))
+            popcount = sum((codes.int() >> s) & 1 for s in range(4))
+            tied = float((popcount > 1).float().mean())
+            atomics_first = first_design_atomics(codes)
+            log(f"roi_align train {case}: codes identical ({tied:.1%} of "
+                f"values tied), backward max_abs_err {err:.3g} ({rel:.3g} of "
+                f"the level's max |grad|); global atomics 0 (first design: "
+                f"{atomics_first} scalar)")
+            if (rname, kind) != ("mixed", "random"):
+                continue
+            isz = feats[0].element_size()
+            touched = touched_bytes(kroi, rois, isz)
+            ms = cuda_ms(lambda: kroi.roi_align_fwd_cuda(
+                feats, rois, STRIDES, with_codes=True), 20)
+            ms_nocodes = cuda_ms(lambda: kroi.roi_align_fwd_cuda(
+                feats, rois, STRIDES), 20)
+            plain_ms = cuda_ms(lambda: kroi.multilevel_roi_align_plain(
+                feats, rois, STRIDES, with_codes=True), 3, 1)
+            nbytes = (touched + rois.numel() * 4 + out.numel() * isz
+                      + codes.numel())
+            bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * out.numel())
+            log(f"roi_align_fwd with codes {name} B={B} R={R_TRAIN} C={C}: "
+                f"kernel {ms:.4f} ms (without codes {ms_nocodes:.4f}), plain "
+                f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, "
+                f"{nbytes / 1e6:.1f} MB)")
+            fwd[name] = dict(ms=ms, ms_without_codes=ms_nocodes,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             max_abs_err=fwd_err)
+            ms = cuda_ms(lambda: kroi.roi_align_bwd_cuda(
+                g, codes, rois, LEVEL_HW, strides=STRIDES, dtype=dt), 20)
+            plain_ms = cuda_ms(lambda: kroi.multilevel_roi_align_bwd_plain(
+                g, codes, rois, LEVEL_HW, strides=STRIDES, dtype=dt), 3, 1)
+            # the function reads g, the codes and the rois and writes every
+            # level's gradient map, each once, in the features' dtype
+            maps = sum(B * h * w * C for h, w in LEVEL_HW) * isz
+            nbytes = g.numel() * isz + codes.numel() + rois.numel() * 4 + maps
+            ops = (BWD_OPS_PER_OUT * out.numel()
+                   + BWD_OPS_PER_TIED_SAMPLE * float(popcount.sum()))
+            bms, by = bound_ms(nbytes, ops)
+            log(f"roi_align_bwd {name} B={B} R={R_TRAIN} C={C}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+                f"({by}, {nbytes / 1e6:.1f} MB); 0 global atomics (first "
+                f"design {atomics_first} scalar)")
+            bwd[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, max_abs_err=err, global_atomics=0,
+                             first_design_atomics=atomics_first)
     return fwd, bwd
 
 

@@ -21,18 +21,35 @@
 // overlap, and the block's reads of them hit L1/L2, so device-memory traffic
 // stays near that minimum without staging windows in shared memory.
 //
-// Backward: replaces roi_align_pallas.py::_bwd_kernel. Same grid and the same
-// shared-memory prologue (taps, weights and level recomputed exactly as the
-// forward computes them). Each thread reads g and the tie code of its
-// channel for every bin, splits g evenly over the tied samples
-// (g / popcount(code), the Pallas kernel's g / count(mask)), and adds that
-// share times each of the sample's four bilinear tap weights into the roi's
-// level gradient with fp32 atomicAdd. The wrapper zeroes the fp32 gradient
-// maps before the launch and casts them once to bf16 afterwards for bf16
-// features. Bound: bytes (g, the codes and the rois read once, each gradient
-// map written once in the features' dtype); on top of that the atomics read
-// and write every touched fp32 cell, those to cells shared by overlapping
-// rois serialise, and the order of the sums changes from run to run.
+// Backward: replaces roi_align_pallas.py::_bwd_kernel. Each bin's g is
+// split evenly over its tied samples (g / popcount(code), the Pallas
+// kernel's g / count(mask)), and each share times a tap's bilinear weight
+// goes to the tap's cell. Bound: bytes (g, the codes and the rois read once,
+// each gradient map written once in the features' dtype). The first design
+// (one block per roi, one scalar fp32 atomicAdd per tap into zeroed fp32
+// maps, about 50 M at B=2, R=512, C=256) was held back by the atomics, which
+// L2 performs per 4-byte element: float4 atomics after merging each roi's
+// taps by cell (8 M instructions) left its time where it was. It also paid
+// for zeroing the fp32 maps and, in bf16, for a cast. This design has no
+// atomics; it gathers by output tile:
+//  1. roi_taps_kernel, one block per roi: the forward's own prologue
+//     (`roi_setup`: level rule with the long-side clamp, taps and weights,
+//     the same arithmetic as the forward), saved with the roi's level, image
+//     and tap window;
+//  2. roi_align_bwd_kernel, one block per 4 x 4 cells of one level of one
+//     image and 256 channels, 4 channels per thread, coarsest level first
+//     (its tiles meet the most rois): it lists the rois of its image whose
+//     window meets the tile (in roi order), then, 16 rois at a time, the
+//     (roi, bin) items with a tap in the tile, and adds each tied sample's
+//     share through its taps in the tile into an fp32 tile in shared memory
+//     (each thread owns its channels: no atomics; an untied channel adds 0,
+//     so the taps stay uniform across the warp; four items' g and codes in
+//     flight). The tile is written once, in the features' dtype: every value
+//     of every map exactly once, no zeroing pass, no cast, and the sums run
+//     in a fixed order, so the result is the same bit for bit from run to
+//     run. What bounds it now is latency: each item is a chain of
+//     shared-memory read-modify-writes, and the tiles meeting many rois run
+//     longest.
 //
 // The file is compiled with --fmad=false, so the level, the bins, the sample
 // coordinates and the bilinear blend round exactly as the plain version's
@@ -60,9 +77,9 @@ struct Levels {
   float fit_px;
 };
 
-// fp32 gradient maps, one per level, [B, H_l, W_l, C] each.
+// Gradient maps in the features' dtype, one per level, [B, H_l, W_l, C].
 struct GradMaps {
-  float* map[kMaxLevels];
+  void* map[kMaxLevels];
 };
 
 namespace {
@@ -74,6 +91,30 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+// Four adjacent channels at an aligned address (16 bytes fp32, 8 bf16).
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
+  v[0] = __low2float(lo); v[1] = __high2float(lo);
+  v[2] = __low2float(hi); v[3] = __high2float(hi);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 x;
+  x.x = *reinterpret_cast<unsigned*>(&lo);
+  x.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = x;
 }
 
 __device__ __forceinline__ float clip(float v, float hi) {
@@ -184,47 +225,332 @@ __global__ void roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
   }
 }
 
-template <typename T>
-__global__ void roi_align_bwd_kernel(Levels lv, GradMaps gm,
-                                     const float* __restrict__ rois,
-                                     const T* __restrict__ grad,
-                                     const uint8_t* __restrict__ codes,
-                                     int rois_per_image, int channels, int p) {
+// One roi's taps as the backward keeps them in device memory. The first 8
+// ints (one 32-byte sector) are what a tile reads to decide whether the roi
+// meets it.
+struct alignas(16) RoiTaps {
+  int level, img, y0, y1, x0, x1, pad0, pad1;   // window: inclusive tap range
+  int lo[2][2 * kMaxOut];
+  int hi[2][2 * kMaxOut];
+  float w[2][2 * kMaxOut];
+};
+
+constexpr int kTile = 4;        // tile of kTile x kTile cells
+constexpr int kBwdThreads = 64; // 4 channels each: 256 channels per block
+constexpr int kBwdChannels = 4 * kBwdThreads;
+constexpr int kRoiBatch = 16;   // rois whose taps a block holds at once
+
+__global__ void roi_taps_kernel(Levels lv, const float* __restrict__ rois,
+                                RoiTaps* __restrict__ out,
+                                int rois_per_image, int p) {
   __shared__ Taps tp;
   const int roi = blockIdx.x;
-  const int img = roi / rois_per_image;
   const int lvl = roi_setup(lv, rois, roi, p, tp);
   __syncthreads();
+  RoiTaps& q = out[roi];
+  const int t = threadIdx.x;
+  if (t < 4 * p) {
+    const int axis = t / (2 * p), s = t % (2 * p);
+    q.lo[axis][s] = tp.lo[axis][s];
+    q.hi[axis][s] = tp.hi[axis][s];
+    q.w[axis][s] = tp.w[axis][s];
+  }
+  if (t == 0) {
+    int win[2][2];
+    for (int axis = 0; axis < 2; ++axis) {
+      int lo = tp.lo[axis][0], hi = tp.hi[axis][0];
+      for (int s = 1; s < 2 * p; ++s) {
+        lo = min(lo, tp.lo[axis][s]);
+        hi = max(hi, tp.hi[axis][s]);
+      }
+      win[axis][0] = lo;
+      win[axis][1] = hi;
+    }
+    q.level = lvl;
+    q.img = roi / rois_per_image;
+    q.y0 = win[0][0];
+    q.y1 = win[0][1];
+    q.x0 = win[1][0];
+    q.x1 = win[1][1];
+  }
+}
 
-  const int height = lv.height[lvl], width = lv.width[lvl];
-  float* dfeat = gm.map[lvl] + (size_t)img * height * width * channels;
-  const size_t base = (size_t)roi * p * p * channels;
-  for (int c = threadIdx.x; c < channels; c += blockDim.x) {
-    for (int py = 0; py < p; ++py) {
-      for (int px = 0; px < p; ++px) {
-        const size_t o = base + ((size_t)py * p + px) * channels + c;
-        const unsigned code = codes[o];
-        if (code == 0) continue;             // empty bin
-        const float ginv = load(grad + o) / (float)__popc(code);
-        for (int sy = 0; sy < 2; ++sy) {
-          const int ys = py * 2 + sy;
-          const float a = tp.w[0][ys];
-          float* rl = dfeat + (size_t)tp.lo[0][ys] * width * channels + c;
-          float* rh = dfeat + (size_t)tp.hi[0][ys] * width * channels + c;
-          for (int sx = 0; sx < 2; ++sx) {
-            if (!((code >> (sy * 2 + sx)) & 1u)) continue;
-            const int xs = px * 2 + sx;
-            const float b = tp.w[1][xs];
-            const size_t xl = (size_t)tp.lo[1][xs] * channels;
-            const size_t xh = (size_t)tp.hi[1][xs] * channels;
-            atomicAdd(rl + xl, (1.0f - a) * (1.0f - b) * ginv);
-            atomicAdd(rh + xl, a * (1.0f - b) * ginv);
-            atomicAdd(rl + xh, (1.0f - a) * b * ginv);
-            atomicAdd(rh + xh, a * b * ginv);
-          }
+// Tiles per level (all images), and the first tile of each level.
+struct TileGrid {
+  int tiles_y[kMaxLevels];
+  int tiles_x[kMaxLevels];
+  int start[kMaxLevels + 1];
+};
+
+// Dynamic shared memory of roi_align_bwd_kernel, in this order: the fp32
+// tile [cells][channels], the batch's taps (lo, hi, w), the batch's bin masks
+// and item offsets, the items, the tile's roi list.
+__host__ __device__ __forceinline__ int bwd_smem_bytes(int rois_per_image,
+                                                      int p) {
+  return kTile * kTile * kBwdChannels * 4 + kRoiBatch * 4 * p * 12 +
+         kRoiBatch * 3 * 4 + kRoiBatch * p * p * 2 + rois_per_image * 2;
+}
+
+__device__ __forceinline__ bool in_tile(int v) {
+  return (unsigned)v < (unsigned)kTile;
+}
+
+__device__ __forceinline__ float4 scaled(float w, float4 share) {
+  return make_float4(w * share.x, w * share.y, w * share.z, w * share.w);
+}
+
+__device__ __forceinline__ void add_to(float4& v, float4 t) {
+  v.x += t.x;
+  v.y += t.y;
+  v.z += t.z;
+  v.w += t.w;
+}
+
+// One sample's share through its four taps (rows rl, rh and columns cl, ch
+// relative to the tile, bilinear weights a and b), four channels: the taps
+// that fall on one cell are summed first, then every distinct cell in the
+// tile is read, updated and written, the reads all before the writes.
+__device__ __forceinline__ void add_taps(float4* acc, int rl, int rh, int cl,
+                                         int ch, float a, float b,
+                                         float4 share) {
+  float4 t00 = scaled((1.0f - a) * (1.0f - b), share);
+  float4 t10 = scaled(a * (1.0f - b), share);
+  float4 t01 = scaled((1.0f - a) * b, share);
+  float4 t11 = scaled(a * b, share);
+  const bool two_rows = rh != rl, two_cols = ch != cl;
+  if (!two_rows) {
+    add_to(t00, t10);
+    add_to(t01, t11);
+  }
+  if (!two_cols) {
+    add_to(t00, t01);
+    add_to(t10, t11);
+  }
+  const bool yl = in_tile(rl), yh = two_rows && in_tile(rh);
+  const bool xl = in_tile(cl), xh = two_cols && in_tile(ch);
+  float4* p00 = acc + (rl * kTile + cl) * kBwdThreads;
+  float4* p10 = acc + (rh * kTile + cl) * kBwdThreads;
+  float4* p01 = acc + (rl * kTile + ch) * kBwdThreads;
+  float4* p11 = acc + (rh * kTile + ch) * kBwdThreads;
+  float4 v00, v10, v01, v11;
+  if (yl && xl) v00 = *p00;
+  if (yh && xl) v10 = *p10;
+  if (yl && xh) v01 = *p01;
+  if (yh && xh) v11 = *p11;
+  if (yl && xl) { add_to(v00, t00); *p00 = v00; }
+  if (yh && xl) { add_to(v10, t10); *p10 = v10; }
+  if (yl && xh) { add_to(v01, t01); *p01 = v01; }
+  if (yh && xh) { add_to(v11, t11); *p11 = v11; }
+}
+
+// g split over the tied samples of its code (low byte): g / popcount; for
+// 1, 2 and 4 the product by the inverse is the same number.
+__device__ __forceinline__ float split(float g, unsigned code) {
+  const int n = __popc(code & 0xffu);
+  return n == 3 ? g / 3.0f : g * (n == 4 ? 0.25f : n == 2 ? 0.5f : 1.0f);
+}
+
+// Codes (one byte a channel) and g of item `it` for the 4 channels from c
+// (channels % 4 == 0, so one aligned load each); zeros past the channels.
+template <typename T>
+__device__ __forceinline__ void fetch(const T* __restrict__ grad,
+                                      const uint8_t* __restrict__ codes,
+                                      const uint16_t* list, int b0, int it,
+                                      int p, int channels, int c,
+                                      unsigned& c4, float4& g4) {
+  c4 = 0u;
+  g4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (c >= channels) return;
+  const size_t o = ((size_t)list[b0 + (it >> 8)] * p * p +
+                    ((it >> 4) & 15) * p + (it & 15)) * channels + c;
+  c4 = *reinterpret_cast<const unsigned*>(codes + o);
+  float v[4];
+  load4(grad + o, v);
+  g4 = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+roi_align_bwd_kernel(Levels lv, GradMaps gm, TileGrid tg,
+                     const RoiTaps* __restrict__ rt,
+                     const T* __restrict__ grad,
+                     const uint8_t* __restrict__ codes, int rois_per_image,
+                     int channels, int p) {
+  extern __shared__ __align__(16) float4 smem4[];
+  float4* acc = smem4 + threadIdx.x;             // [cell][thread]
+  int* s_lo = reinterpret_cast<int*>(smem4 + kTile * kTile * kBwdThreads);
+  int* s_hi = s_lo + kRoiBatch * 4 * p;          // [batch][2 axes][2P]
+  float* s_w = reinterpret_cast<float*>(s_hi + kRoiBatch * 4 * p);
+  int* s_ymask = reinterpret_cast<int*>(s_w + kRoiBatch * 4 * p);
+  int* s_xmask = s_ymask + kRoiBatch;
+  int* s_off = s_xmask + kRoiBatch;
+  uint16_t* items = reinterpret_cast<uint16_t*>(s_off + kRoiBatch);
+  uint16_t* list = items + kRoiBatch * p * p;
+  __shared__ int warp_count[4 * kBwdThreads / 32];
+  __shared__ int list_len, n_items;
+
+  // this block's tile: level, image, first row and column; the coarsest
+  // level's tiles, which meet the most rois, get the first blocks
+  const int tile = gridDim.x - 1 - blockIdx.x;
+  int lvl = 0;
+  while (tile >= tg.start[lvl + 1]) ++lvl;
+  const int local = tile - tg.start[lvl];
+  const int per_img = tg.tiles_y[lvl] * tg.tiles_x[lvl];
+  const int img = local / per_img;
+  const int ty0 = (local % per_img) / tg.tiles_x[lvl] * kTile;
+  const int tx0 = (local % per_img) % tg.tiles_x[lvl] * kTile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.y * kBwdChannels + 4 * tid;
+
+  for (int k = 0; k < kTile * kTile; ++k)
+    acc[k * kBwdThreads] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (tid == 0) list_len = 0;
+  __syncthreads();
+
+  // the rois of the tile's image whose tap window meets the tile, in roi
+  // order: 4 per thread and pass, roi base + 64 * k + tid
+  const int roi_end = (img + 1) * rois_per_image;
+  for (int base = img * rois_per_image; base < roi_end;
+       base += 4 * kBwdThreads) {
+    unsigned m[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = base + k * kBwdThreads + tid;
+      bool meets = false;
+      if (r < roi_end) {
+        const int4 head = *reinterpret_cast<const int4*>(&rt[r].level);
+        const int2 xw = *reinterpret_cast<const int2*>(&rt[r].x0);
+        meets = head.x == lvl && head.y == img && head.z < ty0 + kTile &&
+                head.w >= ty0 && xw.x < tx0 + kTile && xw.y >= tx0;
+      }
+      m[k] = __ballot_sync(0xffffffffu, meets);
+      if (lane == 0) warp_count[k * 2 + warp] = __popc(m[k]);
+    }
+    __syncthreads();
+    int off = list_len;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int slot = k * 2 + warp;
+      if ((m[k] >> lane) & 1u)
+        list[off + (warp ? warp_count[slot - 1] : 0) +
+             __popc(m[k] & ((1u << lane) - 1u))] =
+            (uint16_t)(base + k * kBwdThreads + tid);
+      off += warp_count[2 * k] + warp_count[2 * k + 1];
+    }
+    __syncthreads();
+    if (tid == 0) list_len = off;
+    __syncthreads();
+  }
+
+  const int m2 = 2 * p;
+  for (int b0 = 0; b0 < list_len; b0 += kRoiBatch) {
+    const int nb = min(kRoiBatch, list_len - b0);
+    for (int e = tid; e < nb * 2 * m2; e += kBwdThreads) {
+      const RoiTaps& q = rt[list[b0 + e / (2 * m2)]];
+      const int k = e % (2 * m2), axis = k / m2, j = k % m2;
+      s_lo[e] = q.lo[axis][j];
+      s_hi[e] = q.hi[axis][j];
+      s_w[e] = q.w[axis][j];
+    }
+    __syncthreads();
+    // per roi and axis, the bins with a tap in the tile
+    if (tid < 2 * nb) {
+      const int sl = tid >> 1, axis = tid & 1;
+      const int t0 = axis == 0 ? ty0 : tx0;
+      const int* lo = s_lo + sl * 2 * m2 + axis * m2;
+      const int* hi = s_hi + sl * 2 * m2 + axis * m2;
+      int mask = 0;
+      for (int bin = 0; bin < p; ++bin) {
+        const bool hit =
+            in_tile(lo[2 * bin] - t0) || in_tile(hi[2 * bin] - t0) ||
+            in_tile(lo[2 * bin + 1] - t0) || in_tile(hi[2 * bin + 1] - t0);
+        mask |= (int)hit << bin;
+      }
+      (axis == 0 ? s_ymask : s_xmask)[sl] = mask;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int total = 0;
+      for (int sl = 0; sl < nb; ++sl) {
+        s_off[sl] = total;
+        total += __popc(s_ymask[sl]) * __popc(s_xmask[sl]);
+      }
+      n_items = total;
+    }
+    __syncthreads();
+    // items (roi slot << 8 | py << 4 | px), roi by roi, bins row-major
+    for (int e = tid; e < n_items; e += kBwdThreads) {
+      int sl = 0;
+      while (sl + 1 < nb && s_off[sl + 1] <= e) ++sl;
+      const int k = e - s_off[sl], nx = __popc(s_xmask[sl]);
+      int ym = s_ymask[sl], xm = s_xmask[sl];
+      for (int i = k / nx; i > 0; --i) ym &= ym - 1;
+      for (int i = k % nx; i > 0; --i) xm &= xm - 1;
+      items[e] =
+          (uint16_t)((sl << 8) | ((__ffs(ym) - 1) << 4) | (__ffs(xm) - 1));
+    }
+    __syncthreads();
+    // each tied sample's share through its four taps that land in the tile;
+    // an untied channel adds 0, so the taps stay the same across the warp.
+    // The next four items' codes and g are in flight while one is added.
+    const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    unsigned c1 = 0u, c2 = 0u, c3 = 0u, c4 = 0u;
+    float4 g1 = zero4, g2 = zero4, g3 = zero4, g4 = zero4;
+    auto fetch_item = [&](int i, unsigned& code, float4& gv) {
+      fetch<T>(grad, codes, list, b0, items[i], p, channels, c, code,
+                     gv);
+    };
+    if (n_items > 0) fetch_item(0, c1, g1);
+    if (n_items > 1) fetch_item(1, c2, g2);
+    if (n_items > 2) fetch_item(2, c3, g3);
+    if (n_items > 3) fetch_item(3, c4, g4);
+    for (int i = 0; i < n_items; ++i) {
+      const int it = items[i];
+      const unsigned code = c1;
+      const float4 gv = g1;
+      c1 = c2; g1 = g2;
+      c2 = c3; g2 = g3;
+      c3 = c4; g3 = g4;
+      if (i + 4 < n_items) fetch_item(i + 4, c4, g4);
+      const int sl = it >> 8, py = (it >> 4) & 15, px = it & 15;
+      const float4 gi = make_float4(split(gv.x, code), split(gv.y, code >> 8),
+                                    split(gv.z, code >> 16),
+                                    split(gv.w, code >> 24));
+      const int* lo = s_lo + sl * 2 * m2;        // y entries, then x entries
+      const int* hi = s_hi + sl * 2 * m2;
+      const float* wt = s_w + sl * 2 * m2;
+#pragma unroll
+      for (int sy = 0; sy < 2; ++sy) {
+        const int ys = py * 2 + sy;
+        const float a = wt[ys];
+        const int rl = lo[ys] - ty0, rh = hi[ys] - ty0;
+#pragma unroll
+        for (int sx = 0; sx < 2; ++sx) {
+          const int bit = sy * 2 + sx;
+          if (!__any_sync(0xffffffffu, code & (0x01010101u << bit))) continue;
+          const float4 share = make_float4(
+              (code >> bit) & 1u ? gi.x : 0.0f,
+              (code >> (8 + bit)) & 1u ? gi.y : 0.0f,
+              (code >> (16 + bit)) & 1u ? gi.z : 0.0f,
+              (code >> (24 + bit)) & 1u ? gi.w : 0.0f);
+          const int xs = m2 + px * 2 + sx;
+          const float bw = wt[xs];
+          add_taps(acc, rl, rh, lo[xs] - tx0, hi[xs] - tx0, a, bw, share);
         }
       }
     }
+    __syncthreads();   // the next batch overwrites the taps and items
+  }
+
+  if (c >= channels) return;
+  const int height = lv.height[lvl], width = lv.width[lvl];
+  T* out = static_cast<T*>(gm.map[lvl]) +
+           (size_t)img * height * width * channels + c;
+  for (int k = 0; k < kTile * kTile; ++k) {
+    const int y = ty0 + k / kTile, x = tx0 + k % kTile;
+    if (y >= height || x >= width) continue;
+    const float4 v = acc[k * kBwdThreads];
+    store4(out + ((size_t)y * width + x) * channels, v);
   }
 }
 
@@ -232,6 +558,26 @@ int block_threads(int channels, int out_size) {
   int threads = ((channels + 31) / 32) * 32;
   threads = threads < 4 * out_size ? ((4 * out_size + 31) / 32) * 32 : threads;
   return threads > 256 ? 256 : threads;
+}
+
+// Raise the kernel's shared-memory limit to `smem` and launch it.
+template <typename T>
+int launch_bwd(void (*kernel)(Levels, GradMaps, TileGrid, const RoiTaps*,
+                              const T*, const uint8_t*, int, int, int),
+               dim3 grid, int smem, cudaStream_t s, const Levels& lv,
+               const GradMaps& gm, const TileGrid& tg, const RoiTaps* rt,
+               const T* grad, const uint8_t* codes, int rois_per_image,
+               int channels, int p) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBwdThreads, smem, s>>>(lv, gm, tg, rt, grad, codes,
+                                         rois_per_image, channels, p);
+  return cudaGetLastError();
 }
 
 bool bad_shape(const Levels* levels, int out_size) {
@@ -280,27 +626,53 @@ int simpledet_roi_align_fwd(const Levels* levels, const float* rois, void* out,
   return cudaGetLastError();
 }
 
+// Bytes of RoiTaps scratch the backward needs for n rois.
+long long simpledet_roi_align_bwd_scratch_bytes(int n) {
+  return (long long)n * sizeof(RoiTaps);
+}
+
 // grad [batch * rois_per_image, P, P, C] in the features' dtype; codes from
-// the forward; maps->map[l] the zeroed fp32 [batch, H_l, W_l, C] gradients.
+// the forward; maps->map[l] the [batch, H_l, W_l, C] gradients in the same
+// dtype (every value is written); scratch of
+// simpledet_roi_align_bwd_scratch_bytes(batch * rois_per_image) bytes;
+// channels % 4 == 0, batch * rois_per_image <= 65535.
 int simpledet_roi_align_bwd(const Levels* levels, const GradMaps* maps,
                             const float* rois, const void* grad,
-                            const uint8_t* codes, int batch,
+                            const uint8_t* codes, void* scratch, int batch,
                             int rois_per_image, int channels, int out_size,
                             int is_bf16, void* stream) {
   const int n = batch * rois_per_image;
-  if (n == 0) return 0;
   if (bad_shape(levels, out_size)) return cudaErrorInvalidValue;
+  const int smem = bwd_smem_bytes(rois_per_image, out_size);
+  if (smem > 232448 - 64 || n > 65535 || channels % 4 != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = block_threads(channels, out_size);
+  auto* rt = static_cast<RoiTaps*>(scratch);
+  if (n > 0) {
+    roi_taps_kernel<<<n, 64, 0, s>>>(*levels, rois, rt, rois_per_image,
+                                     out_size);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  TileGrid tg;
+  tg.start[0] = 0;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const bool on = l < levels->n_level;
+    tg.tiles_y[l] = on ? (levels->height[l] + kTile - 1) / kTile : 0;
+    tg.tiles_x[l] = on ? (levels->width[l] + kTile - 1) / kTile : 0;
+    tg.start[l + 1] = tg.start[l] + batch * tg.tiles_y[l] * tg.tiles_x[l];
+  }
+  if (tg.start[kMaxLevels] == 0) return 0;
+  dim3 grid(tg.start[kMaxLevels],
+            (channels + kBwdChannels - 1) / kBwdChannels);
   if (is_bf16)
-    roi_align_bwd_kernel<__nv_bfloat16><<<n, threads, 0, s>>>(
-        *levels, *maps, rois, static_cast<const __nv_bfloat16*>(grad), codes,
-        rois_per_image, channels, out_size);
-  else
-    roi_align_bwd_kernel<float><<<n, threads, 0, s>>>(
-        *levels, *maps, rois, static_cast<const float*>(grad), codes,
-        rois_per_image, channels, out_size);
-  return cudaGetLastError();
+    return launch_bwd(roi_align_bwd_kernel<__nv_bfloat16>, grid, smem, s,
+                      *levels, *maps, tg, rt,
+                      static_cast<const __nv_bfloat16*>(grad), codes,
+                      rois_per_image, channels, out_size);
+  return launch_bwd(roi_align_bwd_kernel<float>, grid, smem, s, *levels,
+                    *maps, tg, rt, static_cast<const float*>(grad), codes,
+                    rois_per_image, channels, out_size);
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
 """Greedy-NMS keep mask: the CUDA bitmask kernel and its plain version.
 
 Replaces `simpledet_tpu/kernels/nms_pallas.py::_nms_kernel`. The kernel
-(`csrc/nms.cu`) writes 64 x 64 tiles of u64 suppression words for every
-problem in one launch, then scans each problem serially in one warp; its note
-says what bounds it. A CPU tensor goes to `nms_keep_sorted_plain`; a CUDA
-tensor launches the kernel or raises.
+(`csrc/nms.cu`) writes the 64 x 64 tiles of u64 suppression words on or right
+of the diagonal for every problem in one launch, then resolves each problem
+block by block in one CTA (ffs over each block's candidates, one step per kept
+row); its note says what bounds it. A CPU tensor goes to
+`nms_keep_sorted_plain`; a CUDA tensor launches the kernel or raises.
 """
 import ctypes
 
@@ -69,12 +70,15 @@ def nms_keep_sorted(sorted_boxes, sorted_valid, thr):
             or sorted_valid.device != sorted_boxes.device):
         raise ValueError("nms_keep_sorted: want boxes [P, N, 4] float32 and "
                          "valid [P, N] bool on one device")
+    lib = _lib()
+    if n > lib.simpledet_nms_max_n() or p > 65535:
+        raise ValueError(f"nms_keep_sorted: at most 65535 problems of "
+                         f"{lib.simpledet_nms_max_n()} boxes, got {p} x {n}")
     boxes = sorted_boxes.contiguous()
     valid = sorted_valid.contiguous()
     keep = torch.empty((p, n), dtype=torch.bool, device=boxes.device)
-    mask = torch.empty((p, n, (n + 63) // 64), dtype=torch.int64,
-                       device=boxes.device)
-    lib = _lib()
+    mask = torch.empty((p, lib.simpledet_nms_mask_words(n)),
+                       dtype=torch.int64, device=boxes.device)
     err = lib.simpledet_nms_keep(
         boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
         p, n, thr, torch.cuda.current_stream(boxes.device).cuda_stream)
@@ -89,4 +93,8 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.simpledet_nms_max_n.argtypes = []
+    lib.simpledet_nms_max_n.restype = ctypes.c_int
+    lib.simpledet_nms_mask_words.argtypes = [ctypes.c_int]
+    lib.simpledet_nms_mask_words.restype = ctypes.c_longlong
     return lib

@@ -310,8 +310,9 @@ def roi_align_fwd_cuda(feats, rois, strides, *, out_size=7,
 
 def roi_align_bwd_cuda(grad, codes, rois, level_hw, *, strides, dtype,
                        out_size=7, canonical_scale=224, canonical_level=4):
-    """Launch the backward kernel: per-level gradients [B, H_l, W_l, C] in
-    `dtype`, accumulated by fp32 atomics into maps zeroed here."""
+    """Launch the backward kernels: per-level gradients [B, H_l, W_l, C] in
+    `dtype`, each 4 x 4-cell tile of each map summed in fp32 in shared memory
+    and written once (no zeroing, no cast, no atomics)."""
     global bwd_launches
     b, r = rois.shape[:2]
     c, dev = grad.shape[-1], grad.device
@@ -329,23 +330,28 @@ def roi_align_bwd_cuda(grad, codes, rois, level_hw, *, strides, dtype,
     if not grad.device == codes.device == rois.device:
         raise ValueError("roi_align backward: grad, codes and rois must be on "
                          "one device")
+    if c % 4 or b * r > 65535:
+        raise ValueError("roi_align backward: the kernel takes channels in "
+                         "fours and at most 65535 rois")
     grad, codes, rois = grad.contiguous(), codes.contiguous(), rois.contiguous()
     lv = _levels(None, level_hw, strides, out_size, canonical_scale,
                  canonical_level)
-    sizes = [b * h * w * c for h, w in level_hw]
-    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-    maps = list(torch.split(flat, sizes))
+    maps = [torch.empty((b, h, w, c), dtype=dtype, device=dev)
+            for h, w in level_hw]
     gm = _GradMaps()
     for i, m in enumerate(maps):
         gm.map[i] = m.data_ptr()
     lib = _lib()
+    scratch = torch.empty(lib.simpledet_roi_align_bwd_scratch_bytes(b * r),
+                          dtype=torch.uint8, device=dev)
     err = lib.simpledet_roi_align_bwd(
         ctypes.byref(lv), ctypes.byref(gm), rois.data_ptr(), grad.data_ptr(),
-        codes.data_ptr(), b, r, c, p, int(dtype == torch.bfloat16),
+        codes.data_ptr(), scratch.data_ptr(), b, r, c, p,
+        int(dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     bwd_launches += 1
     _build.check(lib, err, "multilevel_roi_align backward")
-    return [m.view(b, h, w, c).to(dtype) for m, (h, w) in zip(maps, level_hw)]
+    return maps
 
 
 def _route(rois):
@@ -405,7 +411,9 @@ def _lib():
     bwd = lib.simpledet_roi_align_bwd
     bwd.argtypes = [ctypes.POINTER(_Levels), ctypes.POINTER(_GradMaps),
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p]
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     bwd.restype = ctypes.c_int
+    lib.simpledet_roi_align_bwd_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.simpledet_roi_align_bwd_scratch_bytes.restype = ctypes.c_longlong
     return lib

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions. Torch only, so the
-card tests also run where JAX is not installed:
+"""The port's CUDA kernels against their plain versions. Torch only (and
+chip_smoke's edge cases), so the card tests also run where JAX is not
+installed:
 
     python -m pytest tests/test_torch_kernels.py -m cuda
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from simpledet_torch.kernels import nms as knms
 from simpledet_torch.kernels import roi_align as kroi
 
@@ -97,13 +99,26 @@ def test_roi_align_backward_takes_plain_on_cpu():
         torch.testing.assert_close(got, w, rtol=0, atol=0)
 
 
+def nms_card_cases():
+    """The main path's shapes (random boxes) and chip_smoke's edge cases of
+    the block-wise scan."""
+    cases = {}
+    for p, n, thr in ((10, 1000, 0.7), (80, 1000, 0.5), (10, 2000, 0.7),
+                      (3, 65, 0.5)):
+        cases[f"{p}x{n}@{thr}"] = (*random_problems(
+            np.random.RandomState(n + p), p, n), thr)
+    for name, (boxes, valid, thr) in chip_smoke.nms_edge_cases().items():
+        cases[name] = (torch.from_numpy(boxes), torch.from_numpy(valid), thr)
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,n,thr", [(10, 1000, 0.7), (80, 1000, 0.5),
-                                     (10, 2000, 0.7), (3, 65, 0.5)])
-def test_nms_kernel_matches_plain(cuda, p, n, thr):
+@pytest.mark.parametrize("case", list(chip_smoke.nms_edge_cases()) + [
+    "10x1000@0.7", "80x1000@0.5", "10x2000@0.7", "3x65@0.5"])
+def test_nms_kernel_matches_plain(cuda, case):
     """Keep masks bit-identical to the plain version, all problems in one
     launch."""
-    boxes, valid = random_problems(np.random.RandomState(n + p), p, n)
+    boxes, valid, thr = nms_card_cases()[case]
     boxes, valid = boxes.to(cuda), valid.to(cuda)
     before = knms.launches
     got = knms.nms_keep_sorted(boxes, valid, thr)
@@ -138,18 +153,26 @@ def test_roi_align_kernel_matches_plain(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tied", [False, True], ids=["random", "patches"])
-def test_roi_align_backward_kernel_matches_plain(cuda, dtype, tied):
-    """Training shapes (B=2, R=512, C=256): tie codes identical to the plain
-    version's; fp32 gradients within 1e-5 of each level's max |grad| of the
-    plain backward (atomics reorder the sums); bf16 within one bf16 ulp of
-    the plain fp32 result rounded once."""
+@pytest.mark.parametrize("roi_set", ["mixed", "identical", "wide", "edges"])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype, tied, roi_set):
+    """Training shapes (B=2, R=512, C=256), on mixed rois and on chip_smoke's
+    edge cases (512 identical rois, whole-image and extreme-aspect rois, rois
+    on and past the edges): tie codes identical to the plain version's; fp32
+    gradients within 1e-5 of each level's max |grad| of the plain backward
+    (the sums run in another order); bf16 within one bf16 ulp of the plain fp32
+    result rounded once."""
     rng = np.random.RandomState(6 + tied)
     dt = getattr(torch, dtype)
     feats = pyramid(rng, 2, 200, 336, 256)
     if tied:
         feats = patchy(rng, feats)
     feats = [f.to(cuda, dt) for f in feats]
-    rois = rois_for(rng, 2, 512, 800, 1344).to(cuda)
+    if roi_set == "mixed":
+        rois = rois_for(rng, 2, 512, 800, 1344)
+    else:
+        rois = torch.from_numpy(chip_smoke.roi_edge_cases(
+            rng, 512, 2, 800, 1344)[roi_set])
+    rois = rois.to(cuda)
     level_hw = [tuple(f.shape[1:3]) for f in feats]
     before = (kroi.launches, kroi.bwd_launches)
     out, codes = kroi.roi_align_fwd_cuda(feats, rois, STRIDES,
