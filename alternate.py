@@ -2,11 +2,11 @@
 `simpledet_torch.infer` and `simpledet_torch.train` in each, alternating
 (A B, then B A, ...), and prints the median and quartiles of each reading.
 
-    python -m simpledet_torch.alternate --base build/parent --runs 5
+    python3 alternate.py --base build/parent --runs 5
 
 `--base` is the other checkout (for example the parent commit unpacked with
 `git archive` into a directory that .gitignore lists); the checkout this
-module lives in is the change. Each run's output goes to `--out`.
+script lives in is the change. Each run's output goes to `--out`.
 """
 import argparse
 import json
@@ -17,13 +17,13 @@ import sys
 
 import numpy as np
 
-CHANGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHANGE = os.path.dirname(os.path.abspath(__file__))
 CFG = ["--config", "config/faster_r50v1_fpn_1x.py", "--shape", "800", "1333",
        "--batch", "2"]
 RUNS = {
     "smoke": ["chip_smoke.py"],
     "infer": ["-m", "simpledet_torch.infer", *CFG, "--count", "20"],
-    "train": ["-m", "simpledet_torch.train", *CFG, "--steps", "20"],
+    "train": ["-m", "simpledet_torch.train", *CFG, "--steps", "40"],
 }
 
 

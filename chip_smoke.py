@@ -19,9 +19,8 @@ Phases, each fatal on error:
      training shapes (B=2, R=512, C=256), fp32 and bf16, on random features
      and on features of constant 4 x 4 patches (many tied bins), with mixed,
      identical, whole-image/extreme-aspect and edge rois: codes identical to
-     the plain version's, gradients against the plain backward; the first
-     backward design's global atomics counted from the codes (the present
-     one issues none); times beside bounds;
+     the plain version's, gradients against the plain backward; times beside
+     bounds;
   4. serve requests of 2 synthetic uint8 800 x 1333 images through
      `simpledet_torch.infer.Detector` built from config/faster_r50v1_fpn_1x.py
      (full width, seeded random weights), one of them with score_thr=0 so the
@@ -323,15 +322,6 @@ def roi_edge_cases(rng, r=R_TRAIN, b=B, h=H, w=W):
     }
 
 
-def first_design_atomics(codes):
-    """Global atomic instructions the first RoIAlign-backward design (one
-    block per roi, atomics into fp32 maps) issued on these tie codes: one
-    scalar fp32 add per tied sample, tap and channel. The present design issues none: each output tile is summed in
-    shared memory and written once."""
-    return 4 * int(sum(((codes >> s) & 1).sum(dtype=torch.int64)
-                       for s in range(4)))
-
-
 def check_roi_align_train(dev):
     """Forward with tie codes and backward at the training shapes, on mixed
     rois and on the edge cases of `roi_edge_cases`, with random and patchy
@@ -392,11 +382,9 @@ def check_roi_align_train(dev):
                           / max(scale, 1e-30))
             popcount = sum((codes.int() >> s) & 1 for s in range(4))
             tied = float((popcount > 1).float().mean())
-            atomics_first = first_design_atomics(codes)
             log(f"roi_align train {case}: codes identical ({tied:.1%} of "
                 f"values tied), backward max_abs_err {err:.3g} ({rel:.3g} of "
-                f"the level's max |grad|); global atomics 0 (first design: "
-                f"{atomics_first} scalar)")
+                f"the level's max |grad|)")
             if (rname, kind) != ("mixed", "random"):
                 continue
             isz = feats[0].element_size()
@@ -422,7 +410,9 @@ def check_roi_align_train(dev):
             plain_ms = cuda_ms(lambda: kroi.multilevel_roi_align_bwd_plain(
                 g, codes, rois, LEVEL_HW, strides=STRIDES, dtype=dt), 3, 1)
             # the function reads g, the codes and the rois and writes every
-            # level's gradient map, each once, in the features' dtype
+            # level's gradient map, each once, in the features' dtype; the
+            # kernels issue no global atomics (each output tile is summed in
+            # shared memory and written once)
             maps = sum(B * h * w * C for h, w in LEVEL_HW) * isz
             nbytes = g.numel() * isz + codes.numel() + rois.numel() * 4 + maps
             ops = (BWD_OPS_PER_OUT * out.numel()
@@ -430,11 +420,9 @@ def check_roi_align_train(dev):
             bms, by = bound_ms(nbytes, ops)
             log(f"roi_align_bwd {name} B={B} R={R_TRAIN} C={C}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-                f"({by}, {nbytes / 1e6:.1f} MB); 0 global atomics (first "
-                f"design {atomics_first} scalar)")
+                f"({by}, {nbytes / 1e6:.1f} MB); 0 global atomics")
             bwd[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             bound_by=by, max_abs_err=err, global_atomics=0,
-                             first_design_atomics=atomics_first)
+                             bound_by=by, max_abs_err=err)
     return fwd, bwd
 
 

@@ -25,13 +25,9 @@
 // split evenly over its tied samples (g / popcount(code), the Pallas
 // kernel's g / count(mask)), and each share times a tap's bilinear weight
 // goes to the tap's cell. Bound: bytes (g, the codes and the rois read once,
-// each gradient map written once in the features' dtype). The first design
-// (one block per roi, one scalar fp32 atomicAdd per tap into zeroed fp32
-// maps, about 50 M at B=2, R=512, C=256) was held back by the atomics, which
-// L2 performs per 4-byte element: float4 atomics after merging each roi's
-// taps by cell (8 M instructions) left its time where it was. It also paid
-// for zeroing the fp32 maps and, in bf16, for a cast. This design has no
-// atomics; it gathers by output tile:
+// each gradient map written once in the features' dtype). The kernels issue
+// no atomics, zero no maps and cast nothing (PERF.md section 6 says why
+// atomic designs were dropped); they gather by output tile:
 //  1. roi_taps_kernel, one block per roi: the forward's own prologue
 //     (`roi_setup`: level rule with the long-side clamp, taps and weights,
 //     the same arithmetic as the forward), saved with the roi's level, image

@@ -44,7 +44,7 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO) for p in (REPO / "simpledet_torch").rglob("*.py")]
-    + [Path("chip_smoke.py")]), ids=str)
+    + [Path("chip_smoke.py"), Path("alternate.py")]), ids=str)
 def test_source_imports_no_jax(path):
     bad = [m for m in _imports(REPO / path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"

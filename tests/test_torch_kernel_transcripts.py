@@ -1,22 +1,14 @@
-"""Python transcriptions of the port's two redesigned CUDA kernels, run on the
-CPU where the kernels cannot run.
+"""A Python transcription of the port's NMS kernel (`simpledet_torch/csrc/
+nms.cu`), run on the CPU where the kernel cannot run: the triangular tile index
+and packed stripes of the mask launch, and the scan's block-wise resolution
+(ffs over each block's candidates against its diagonal words, the kept rows'
+words OR-ed into `removed` by four row groups). Keep flags must be identical to
+`nms_keep_sorted_plain` and to the JAX package's Pallas kernel run in interpret
+mode.
 
-- NMS (`simpledet_torch/csrc/nms.cu`): the triangular tile index and packed
-  stripes of the mask launch, and the scan's block-wise resolution (ffs over
-  each block's candidates against its diagonal words, the kept rows' words
-  OR-ed into `removed` by four row groups). Keep flags must be identical to
-  `nms_keep_sorted_plain` and to the JAX package's Pallas kernel run in
-  interpret mode.
-- RoIAlign backward (`simpledet_torch/csrc/roi_align.cu`): each roi's tap
-  window, the 4 x 4-cell output tiles that gather from the rois meeting
-  them, 16 rois at a time, over the (roi, bin) items with a tap in the
-  tile. Gradients within 1e-5 of each level's max |grad| of
-  `multilevel_roi_align_bwd_plain` (the sums run in another order), every
-  cell written exactly once.
-
-The suppression bits come from the plain version's `pair_suppression` and
-the taps from its `_sample_taps`: the IoU and tap arithmetic are held on the
-card (`tests/test_torch_kernels.py`), the word and cell bookkeeping here.
+The suppression bits come from the plain version's `pair_suppression`: the IoU
+arithmetic is held on the card (`tests/test_torch_kernels.py`), the word
+bookkeeping here.
 """
 import numpy as np
 import pytest
@@ -27,12 +19,8 @@ import jax.numpy as jnp
 import chip_smoke
 from simpledet_tpu.kernels.nms_pallas import nms_keep_sorted_pallas
 from simpledet_torch.kernels import nms as knms
-from simpledet_torch.kernels import roi_align as kroi
 
 BLOCK = 64
-
-
-# ------------------------------------------------------------------- NMS
 
 
 def tri_tiles(col_blocks):
@@ -121,99 +109,3 @@ def test_nms_block_resolution(name):
             jnp.asarray(boxes[i]), jnp.asarray(valid[i]), thr,
             interpret=True))
         np.testing.assert_array_equal(got, pallas)
-
-
-# ------------------------------------------------------ RoIAlign backward
-
-TILE, ROI_BATCH = 4, 16
-
-
-def tile_backward(grad, codes, rois, level_hw, strides, p=7):
-    """roi_taps_kernel and roi_align_bwd_kernel: per-level fp32 gradients,
-    each 4 x 4 tile gathered from the rois whose tap window meets it, 16
-    rois at a time, (roi, bin) items in roi order and row-major bins."""
-    b, r = rois.shape[:2]
-    c = grad.shape[-1]
-    rois_f = rois.reshape(-1, 4)
-    lvl = kroi.roi_level_index(rois_f, level_hw, strides, 224, 4, p).numpy()
-    (yl, yh, a), (xl, xh, bt), _ = kroi._sample_taps(rois_f, lvl, level_hw,
-                                                     strides, p)
-    lo = [yl.reshape(b * r, -1).numpy(), xl.reshape(b * r, -1).numpy()]
-    hi = [yh.reshape(b * r, -1).numpy(), xh.reshape(b * r, -1).numpy()]
-    wt = [a.reshape(b * r, -1).numpy(), bt.reshape(b * r, -1).numpy()]
-    g = grad.reshape(b * r, p, p, c).numpy()
-    cd = codes.numpy().astype(np.int64)
-    popc = sum((cd >> s) & 1 for s in range(4)).astype(np.float32)
-    maps = []
-    for level, (h, w) in enumerate(level_hw):
-        out = np.full((b, h, w, c), np.nan, np.float32)
-        for img, ty0, tx0 in [(i, y, x) for i in range(b)
-                              for y in range(0, h, TILE)
-                              for x in range(0, w, TILE)]:
-            acc = np.zeros((TILE, TILE, c), np.float32)
-            t0 = (ty0, tx0)
-            meets = [n for n in range(b * r)
-                     if lvl[n] == level and n // r == img
-                     and all(lo[ax][n].min() < t0[ax] + TILE
-                             and hi[ax][n].max() >= t0[ax]
-                             for ax in (0, 1))]
-            for b0 in range(0, len(meets), ROI_BATCH):
-                for n in meets[b0:b0 + ROI_BATCH]:
-                    bins = [[k for k in range(p) if any(
-                        0 <= v - t0[ax] < TILE for v in (
-                            lo[ax][n][2 * k], hi[ax][n][2 * k],
-                            lo[ax][n][2 * k + 1], hi[ax][n][2 * k + 1]))]
-                        for ax in (0, 1)]
-                    for py, px in [(y, x) for y in bins[0] for x in bins[1]]:
-                        code = cd[n, py, px]
-                        ginv = g[n, py, px] / np.maximum(popc[n, py, px], 1)
-                        for sy, sx in ((0, 0), (0, 1), (1, 0), (1, 1)):
-                            tied = ((code >> (2 * sy + sx)) & 1).astype(bool)
-                            ys, xs = 2 * py + sy, 2 * px + sx
-                            ay, bx = wt[0][n][ys], wt[1][n][xs]
-                            for y, x, wgt in (
-                                    (lo[0][n][ys], lo[1][n][xs],
-                                     (1 - ay) * (1 - bx)),
-                                    (hi[0][n][ys], lo[1][n][xs],
-                                     ay * (1 - bx)),
-                                    (lo[0][n][ys], hi[1][n][xs],
-                                     (1 - ay) * bx),
-                                    (hi[0][n][ys], hi[1][n][xs], ay * bx)):
-                                if 0 <= y - ty0 < TILE and 0 <= x - tx0 < TILE:
-                                    acc[y - ty0, x - tx0] += np.where(
-                                        tied, wgt * ginv, np.float32(0))
-            hh, ww = min(TILE, h - ty0), min(TILE, w - tx0)
-            assert np.isnan(out[img, ty0:ty0 + hh, tx0:tx0 + ww]).all()
-            out[img, ty0:ty0 + hh, tx0:tx0 + ww] = acc[:hh, :ww]
-        maps.append(out)
-    return maps
-
-
-def test_roi_align_backward_tiles():
-    """Mixed, identical, wide and edge rois on patchy features: the tile
-    gather against the plain backward; every cell written exactly once."""
-    rng = np.random.RandomState(4)
-    h, w, c, b = 128, 192, 8, 2
-    feats = [torch.from_numpy(rng.randn(b, h // s, w // s, c).astype(
-        np.float32)) for s in (4, 8, 16, 32)]
-    feats = chip_smoke.patches(rng, feats)
-    strides = (4, 8, 16, 32)
-    level_hw = [tuple(f.shape[1:3]) for f in feats]
-    xy = rng.uniform(0, [w, h], (b, 6, 2))
-    wh = np.exp(rng.uniform(np.log(2), np.log(w), (b, 6, 2)))
-    sets = [np.concatenate([xy, xy + wh], 2).astype(np.float32)]
-    sets += list(chip_smoke.roi_edge_cases(rng, r=6, b=b, h=h, w=w).values())
-    sets.append(np.tile(sets[0][:, :1], (1, 40, 1)))   # > 16 rois on a tile
-    rois = torch.from_numpy(np.concatenate(sets, 1))
-    _, codes = kroi.multilevel_roi_align_plain(feats, rois, strides,
-                                               with_codes=True)
-    assert ((sum((codes.int() >> s) & 1 for s in range(4))) > 1).any()
-    grad = torch.from_numpy(rng.randn(b, rois.shape[1], 7, 7, c).astype(
-        np.float32))
-    got = tile_backward(grad, codes, rois, level_hw, strides)
-    want = kroi.multilevel_roi_align_bwd_plain(
-        grad, codes, rois, level_hw, strides=strides, dtype=torch.float32)
-    for gl, wl in zip(got, want):
-        assert not np.isnan(gl).any()
-        scale = float(wl.abs().max())
-        assert float(np.abs(gl - wl.numpy()).max()) <= 1e-5 * scale

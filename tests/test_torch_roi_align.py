@@ -8,6 +8,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from simpledet_tpu.kernels.roi_align import (_batched_crop_roi_align,
                                              batched_multilevel_roi_align)
 from simpledet_tpu.kernels.roi_align_pallas import (_fwd as pallas_fwd,
@@ -176,6 +177,27 @@ def test_plain_backward_matches_pallas_and_crop_vjp():
         (want,) = vjp(jnp.asarray(g))
         _close_to_scale(got, [np.asarray(w) for w in want], GRAD_RTOL)
     assert all(np.abs(x).sum() > 0 for x in got[:3])
+
+
+@pytest.mark.parametrize("roi_set", ["identical", "wide", "edges"])
+def test_plain_backward_matches_pallas_on_edge_rois(roi_set):
+    """The card tests' RoIAlign-backward edge cases (`chip_smoke.
+    roi_edge_cases`: identical rois, whole-image and extreme-aspect rois, rois
+    on and past the edges) at a small size on tied inputs: the plain backward,
+    which defines the kernel's function, against jax.vjp of the Pallas kernel
+    (interpret mode)."""
+    rng = np.random.RandomState(9)
+    feats = tied_pyramid(rng)
+    rois = chip_smoke.roi_edge_cases(rng, r=10, b=2, h=384, w=640)[roi_set]
+    g = rng.randn(*rois.shape[:2], 7, 7, 8).astype(np.float32)
+    got, _ = _plain_vjp(feats, rois, g)
+    jr = jnp.asarray(rois)
+    _, vjp = jax.vjp(lambda fs: batched_roi_align_pallas(
+        fs, jr, STRIDES, 7, 224, 4, "max", None, True),
+        [jnp.asarray(f) for f in feats])
+    (want,) = vjp(jnp.asarray(g))
+    _close_to_scale(got, [np.asarray(w) for w in want], GRAD_RTOL)
+    assert sum(np.abs(x).sum() for x in got) > 0
 
 
 def test_plain_backward_equals_autograd_of_plain_forward():
