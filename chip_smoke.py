@@ -18,9 +18,9 @@ Phases, each fatal on error:
   3b. the RoIAlign forward with tie codes and the RoIAlign backward at the
      training shapes (B=2, R=512, C=256), fp32 and bf16, on random features
      and on features of constant 4 x 4 patches (many tied bins), with mixed,
-     identical, whole-image/extreme-aspect and edge rois: codes identical to
-     the plain version's, gradients against the plain backward; times beside
-     bounds;
+     identical, whole-image/extreme-aspect, edge and collapsed rois: codes
+     identical to the plain version's, gradients against the plain backward;
+     times beside bounds, and the backward's time on each roi set;
   4. serve requests of 2 synthetic uint8 800 x 1333 images through
      `simpledet_torch.infer.Detector` built from config/faster_r50v1_fpn_1x.py
      (full width, seeded random weights), one of them with score_thr=0 so the
@@ -302,7 +302,8 @@ def roi_edge_cases(rng, r=R_TRAIN, b=B, h=H, w=W):
     """{name: [b, r, 4] f32 numpy rois} at the edges of the backward's design:
     identical rois (every roi adds to the same cells), whole-image and
     extreme-aspect rois (the most distinct taps, 4P per axis), rois on and
-    past the maps' edges."""
+    past the maps' edges, and collapsed rois (points and lines on the image's
+    border, as a diverged step's proposals clip to: every bin empty)."""
     def tiled(rows, jitter):
         rows = np.asarray(rows, np.float32)
         out = rows[np.arange(b * r) % len(rows)].reshape(b, r, 4)
@@ -319,7 +320,38 @@ def roi_edge_cases(rng, r=R_TRAIN, b=B, h=H, w=W):
                         [-20, -20, 10, 10], [w - 10, h - 10, w + 50, h + 50],
                         [0, 0, w - 1, 8], [w + 60, h + 60, w + 90, h + 90],
                         [0, 100, 30, 400], [w - 31, 200, w - 1, 500]], 1),
+        "collapsed": tiled([[0, 0, 0, 0], [w - 1, h - 1, w - 1, h - 1],
+                            [0, 200, 0, 600], [100, h - 1, 900, h - 1]], 0),
     }
+
+
+def time_bwd_sets(dev):
+    """{"<roi set> <dtype>": ms} of the RoIAlign backward kernel at the
+    training shapes (B=2, R=512, C=256) on random features, for the mixed rois
+    and each set of `roi_edge_cases`: where the backward's time depends on
+    the rois. Uses only wrappers whose signatures every version of the port
+    shares, so `alternate.py` runs it against another checkout's kernels."""
+    from simpledet_torch.kernels import roi_align as kroi
+
+    rng = np.random.RandomState(5)
+    feats32 = [torch.from_numpy(rng.randn(B, h, w, C).astype(np.float32))
+               .to(dev) for h, w in LEVEL_HW]
+    sets = {"mixed": mixed_rois(rng, dev, R_TRAIN)}
+    sets.update({k: torch.from_numpy(v).to(dev)
+                 for k, v in roi_edge_cases(rng).items()})
+    out = {}
+    for rname, rois in sets.items():
+        for dt in (torch.float32, torch.bfloat16):
+            feats = [f.to(dt) for f in feats32]
+            pooled, codes = kroi.roi_align_fwd_cuda(feats, rois, STRIDES,
+                                                    with_codes=True)
+            g = torch.from_numpy(rng.randn(*pooled.shape).astype(
+                np.float32)).to(dev, dt)
+            name = f"{rname} {str(dt).split('.')[-1]}"
+            out[name] = cuda_ms(lambda: kroi.roi_align_bwd_cuda(
+                g, codes, rois, LEVEL_HW, strides=STRIDES, dtype=dt), 10)
+            log(f"roi_align_bwd set {name}: kernel {out[name]:.4f} ms")
+    return out
 
 
 def check_roi_align_train(dev):
@@ -671,6 +703,7 @@ def main():
     nms = check_nms(dev)
     roi = check_roi_align(dev)
     fwd_train, bwd = check_roi_align_train(dev)
+    time_bwd_sets(dev)
     serve_counts, ms_img = serve(dev, smi)
     train_counts, ms_step, split = train(dev, smi)
 

@@ -26,7 +26,8 @@
 //     for all rows, at the end.
 // Bound: launch 1 does about 16 float operations per pair, one of them a
 // division (bound by operations, well under a microsecond at the main path's
-// sizes). Launch 2 is a chain of n/64 block steps plus one shared-memory step
+// sizes); a pair that does not intersect skips the union and the division,
+// which makes the launch faster at the main path's shapes (PERF.md section 6). Launch 2 is a chain of n/64 block steps plus one shared-memory step
 // per kept row: latency, not bytes or operations, bounds it.
 //
 // The file is compiled with --fmad=false, so no product is fused into an
@@ -47,6 +48,9 @@ __device__ __forceinline__ float iou_plus1(const float* a, const float* b) {
   float iw = fminf(a[2], b[2]) - fmaxf(a[0], b[0]) + 1.0f;
   float ih = fminf(a[3], b[3]) - fmaxf(a[1], b[1]) + 1.0f;
   float inter = fmaxf(iw, 0.0f) * fmaxf(ih, 0.0f);
+  // inter / max(union, 1e-12) is +-0 whenever inter is: max(union, 1e-12)
+  // is never NaN nor below 1e-12
+  if (inter == 0.0f) return 0.0f;
   float area_a = (a[2] - a[0] + 1.0f) * (a[3] - a[1] + 1.0f);
   float area_b = (b[2] - b[0] + 1.0f) * (b[3] - b[1] + 1.0f);
   float uni = area_a + area_b - inter;

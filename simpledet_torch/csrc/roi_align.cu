@@ -52,6 +52,7 @@
 // separate PyTorch operations do.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -223,9 +224,12 @@ __global__ void roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
 
 // One roi's taps as the backward keeps them in device memory. The first 8
 // ints (one 32-byte sector) are what a tile reads to decide whether the roi
-// meets it.
+// meets it: the window is the inclusive tap range of the roi's non-empty
+// bins, and none when a whole axis is empty (an empty bin has code 0 and adds
+// nothing, so degenerate rois, such as those of a diverged step, cost no
+// tile any work); ybins and xbins have bit `bin` set for non-empty bins.
 struct alignas(16) RoiTaps {
-  int level, img, y0, y1, x0, x1, pad0, pad1;   // window: inclusive tap range
+  int level, img, y0, y1, x0, x1, ybins, xbins;
   int lo[2][2 * kMaxOut];
   int hi[2][2 * kMaxOut];
   float w[2][2 * kMaxOut];
@@ -252,22 +256,28 @@ __global__ void roi_taps_kernel(Levels lv, const float* __restrict__ rois,
     q.w[axis][s] = tp.w[axis][s];
   }
   if (t == 0) {
-    int win[2][2];
+    int win[2][2], bins[2];
     for (int axis = 0; axis < 2; ++axis) {
-      int lo = tp.lo[axis][0], hi = tp.hi[axis][0];
-      for (int s = 1; s < 2 * p; ++s) {
+      int lo = INT_MAX, hi = -1, mask = 0;
+      for (int s = 0; s < 2 * p; ++s) {
+        if (tp.empty[axis][s / 2]) continue;
+        mask |= 1 << (s / 2);
         lo = min(lo, tp.lo[axis][s]);
         hi = max(hi, tp.hi[axis][s]);
       }
       win[axis][0] = lo;
       win[axis][1] = hi;
+      bins[axis] = mask;
     }
+    if (bins[0] == 0 || bins[1] == 0) win[0][1] = win[1][1] = -1;
     q.level = lvl;
     q.img = roi / rois_per_image;
     q.y0 = win[0][0];
     q.y1 = win[0][1];
     q.x0 = win[1][0];
     q.x1 = win[1][1];
+    q.ybins = bins[0];
+    q.xbins = bins[1];
   }
 }
 
@@ -449,12 +459,14 @@ roi_align_bwd_kernel(Levels lv, GradMaps gm, TileGrid tg,
       s_w[e] = q.w[axis][j];
     }
     __syncthreads();
-    // per roi and axis, the bins with a tap in the tile
+    // per roi and axis, the non-empty bins with a tap in the tile
     if (tid < 2 * nb) {
       const int sl = tid >> 1, axis = tid & 1;
       const int t0 = axis == 0 ? ty0 : tx0;
       const int* lo = s_lo + sl * 2 * m2 + axis * m2;
       const int* hi = s_hi + sl * 2 * m2 + axis * m2;
+      const RoiTaps& q = rt[list[b0 + sl]];
+      const int bins = axis == 0 ? q.ybins : q.xbins;
       int mask = 0;
       for (int bin = 0; bin < p; ++bin) {
         const bool hit =
@@ -462,7 +474,7 @@ roi_align_bwd_kernel(Levels lv, GradMaps gm, TileGrid tg,
             in_tile(lo[2 * bin + 1] - t0) || in_tile(hi[2 * bin + 1] - t0);
         mask |= (int)hit << bin;
       }
-      (axis == 0 ? s_ymask : s_xmask)[sl] = mask;
+      (axis == 0 ? s_ymask : s_xmask)[sl] = mask & bins;
     }
     __syncthreads();
     if (tid == 0) {

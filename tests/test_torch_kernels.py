@@ -153,11 +153,12 @@ def test_roi_align_kernel_matches_plain(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tied", [False, True], ids=["random", "patches"])
-@pytest.mark.parametrize("roi_set", ["mixed", "identical", "wide", "edges"])
+@pytest.mark.parametrize("roi_set", ["mixed", "identical", "wide", "edges",
+                                     "collapsed"])
 def test_roi_align_backward_kernel_matches_plain(cuda, dtype, tied, roi_set):
     """Training shapes (B=2, R=512, C=256), on mixed rois and on chip_smoke's
     edge cases (512 identical rois, whole-image and extreme-aspect rois, rois
-    on and past the edges): tie codes identical to the plain version's; fp32
+    on and past the edges, collapsed rois whose bins are all empty): tie codes identical to the plain version's; fp32
     gradients within 1e-5 of each level's max |grad| of the plain backward
     (the sums run in another order); bf16 within one bf16 ulp of the plain fp32
     result rounded once."""

@@ -179,11 +179,12 @@ def test_plain_backward_matches_pallas_and_crop_vjp():
     assert all(np.abs(x).sum() > 0 for x in got[:3])
 
 
-@pytest.mark.parametrize("roi_set", ["identical", "wide", "edges"])
+@pytest.mark.parametrize("roi_set", ["identical", "wide", "edges",
+                                     "collapsed"])
 def test_plain_backward_matches_pallas_on_edge_rois(roi_set):
     """The card tests' RoIAlign-backward edge cases (`chip_smoke.
     roi_edge_cases`: identical rois, whole-image and extreme-aspect rois, rois
-    on and past the edges) at a small size on tied inputs: the plain backward,
+    on and past the edges, collapsed rois) at a small size on tied inputs: the plain backward,
     which defines the kernel's function, against jax.vjp of the Pallas kernel
     (interpret mode)."""
     rng = np.random.RandomState(9)
@@ -197,7 +198,8 @@ def test_plain_backward_matches_pallas_on_edge_rois(roi_set):
         [jnp.asarray(f) for f in feats])
     (want,) = vjp(jnp.asarray(g))
     _close_to_scale(got, [np.asarray(w) for w in want], GRAD_RTOL)
-    assert sum(np.abs(x).sum() for x in got) > 0
+    # collapsed rois have only empty bins: no gradient anywhere
+    assert (sum(np.abs(x).sum() for x in got) > 0) != (roi_set == "collapsed")
 
 
 def test_plain_backward_equals_autograd_of_plain_forward():
