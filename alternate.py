@@ -5,9 +5,9 @@
     python3 alternate.py --base build/parent --runs 5
     python3 alternate.py --base build/variant --runs 3 --kinds nms
 
-The `nms` and `bwd` kinds run this checkout's `chip_smoke.check_nms` and
-`chip_smoke.time_bwd_sets` (the same inputs and timing on both sides) against
-each checkout's own kernels.
+The `nms`, `fwd` and `bwd` kinds run this checkout's `chip_smoke.check_nms`,
+`chip_smoke.time_fwd_sets` and `chip_smoke.time_bwd_sets` (the same inputs
+and timing on both sides) against each checkout's own kernels.
 
 `--base` is the other checkout (for example the parent commit unpacked with
 `git archive` into a directory that .gitignore lists); the checkout this
@@ -29,6 +29,7 @@ CFG = ["--config", "config/faster_r50v1_fpn_1x.py", "--shape", "800", "1333",
 # the timed window short
 RUNS = {
     "smoke": ["chip_smoke.py"],
+    "fwd": ["-c", "{call}", "time_fwd_sets"],
     "bwd": ["-c", "{call}", "time_bwd_sets"],
     "nms": ["-c", "{call}", "check_nms"],
     "infer": ["-m", "simpledet_torch.infer", *CFG, "--count", "20"],
@@ -48,8 +49,8 @@ CALL = (
 
 
 def readings(kind, text):
-    """The numbers a run printed: kernel times (ms) for smoke, ms per image
-    for infer, ms per step for train."""
+    """The numbers a run printed: kernel times (ms) for smoke, nms, fwd and
+    bwd, ms per image for infer, ms per step for train."""
     if kind == "infer":
         return {"ms_per_image": float(re.search(r"([\d.]+) ms per image",
                                                 text).group(1))}
@@ -57,10 +58,10 @@ def readings(kind, text):
         return {"ms_per_step": float(re.search(r"([\d.]+) ms/step",
                                                text).group(1))}
     out = {}
-    if kind == "bwd":
-        for m in re.finditer(r"^roi_align_bwd set (.+): kernel ([\d.]+) ms",
-                             text, re.M):
-            out[f"roi_align_bwd set {m.group(1)}"] = float(m.group(2))
+    if kind in ("fwd", "bwd"):
+        for m in re.finditer(rf"^roi_align_{kind} set (.+): kernel ([\d.]+) "
+                             "ms", text, re.M):
+            out[f"roi_align_{kind} set {m.group(1)}"] = float(m.group(2))
         return out
     for m in re.finditer(r"^nms (\d+x\d+@[\d.]+): .*?kernel ([\d.]+) ms",
                          text, re.M):

@@ -10,7 +10,9 @@ Phases, each fatal on error:
      parallel);
   3. hold the NMS and RoIAlign-forward kernels against their plain PyTorch
      versions at the serving path's shapes and time both with CUDA events
-     beside the kernel's bound;
+     beside the kernel's bound; the RoIAlign forward bit for bit (bf16: the
+     plain fp32 result rounded once) on mixed rois and on each edge-case
+     roi set below;
      NMS edge cases (n = 1, 63, 64, 65, 2000, a suppression chain across
      every block boundary, all invalid, all identical, no overlaps) give
      keep flags identical to the plain version's; kept rows per problem
@@ -19,8 +21,9 @@ Phases, each fatal on error:
      training shapes (B=2, R=512, C=256), fp32 and bf16, on random features
      and on features of constant 4 x 4 patches (many tied bins), with mixed,
      identical, whole-image/extreme-aspect, edge and collapsed rois: codes
-     identical to the plain version's, gradients against the plain backward;
-     times beside bounds, and the backward's time on each roi set;
+     and outputs identical to the plain version's, gradients against the
+     plain backward; times beside bounds, and the forward's (serving and
+     training) and the backward's time on each roi set;
   4. serve requests of 2 synthetic uint8 800 x 1333 images through
      `simpledet_torch.infer.Detector` built from config/faster_r50v1_fpn_1x.py
      (full width, seeded random weights), one of them with score_thr=0 so the
@@ -245,26 +248,80 @@ def touched_bytes(kroi, rois, itemsize):
     return int(torch.unique(cells).numel()) * C * itemsize
 
 
+def fwd_traffic(kroi, rois):
+    """Per roi, in feature cells ([N] int64 each): the tap reads of the
+    bilinear formula (16 per non-empty bin), the cells roi_align_fwd_kernel
+    loads (each distinct tap row of a bin row once per distinct tap column
+    of the roi's non-empty bins), and the roi's distinct tap cells."""
+    rois_f = rois.reshape(-1, 4)
+    lvl = kroi.roi_level_index(rois_f, LEVEL_HW, STRIDES, 224, 4, 7)
+    (yl, yh, _), (xl, xh, _), empty = kroi._sample_taps(rois_f, lvl, LEVEL_HW,
+                                                        STRIDES, 7)
+    n, p = yl.shape[:2]
+    # a bin is empty when its row's or its column's extent is (roi_setup's
+    # per-axis flags): the non-empty bins are a grid of rows x columns
+    rows_on, cols_on = ~empty.all(2), ~empty.all(1)
+
+    def distinct(v, keep):
+        v = torch.where(keep, v, torch.full_like(v, -1)).sort(1).values
+        new = torch.ones_like(keep)
+        new[:, 1:] = v[:, 1:] != v[:, :-1]
+        return (new & (v >= 0)).sum(1)
+
+    ys = torch.cat([yl, yh], 2)                                   # [N, P, 4]
+    on4 = rows_on[:, :, None].expand(n, p, 4)
+    ncol = distinct(torch.cat([xl, xh], 2).reshape(n, -1),
+                    cols_on[:, :, None].expand(n, p, 4).reshape(n, -1))
+    per_row = distinct(ys.reshape(n * p, 4), on4.reshape(n * p, 4))
+    loads = per_row.reshape(n, p).sum(1) * ncol
+    cells = distinct(ys.reshape(n, -1), on4.reshape(n, -1)) * ncol
+    taps = 16 * rows_on.sum(1) * cols_on.sum(1)
+    return taps, loads, cells
+
+
+def traffic_line(kroi, rois, itemsize):
+    """K1's feature reads at these rois, in MB: the formula's tap reads, the
+    kernel's loads, the sum of the rois' distinct cells, and the call's
+    distinct cells."""
+    mb = C * itemsize / 1e6
+    taps, loads, cells = (float(t.sum()) * mb for t in fwd_traffic(kroi, rois))
+    return (f"tap reads {taps:.1f} MB, kernel loads {loads:.1f} MB, per-roi "
+            f"distinct {cells:.1f} MB, whole call distinct "
+            f"{touched_bytes(kroi, rois, itemsize) / 1e6:.1f} MB")
+
+
 def check_roi_align(dev):
+    """The serving forward (R=1000, no codes) bit for bit: fp32 identical to
+    the plain version, bf16 identical to the plain fp32 result rounded once
+    to bf16, on the mixed rois and on each set of `roi_edge_cases`. Times
+    on the mixed rois."""
     from simpledet_torch.kernels import roi_align as kroi
 
     rng = np.random.RandomState(1)
     feats32 = [torch.from_numpy(rng.randn(B, h, w, C).astype(np.float32))
                .to(dev) for h, w in LEVEL_HW]
     rois = mixed_rois(rng, dev)
+    roi_sets = {"mixed": rois}
+    roi_sets.update({k: torch.from_numpy(v).to(dev)
+                     for k, v in roi_edge_cases(rng, R).items()})
     out = {}
-    for dt, tol in ((torch.float32, dict(rtol=1e-4, atol=1e-4)),
-                    # bf16: the plain fp32 result rounded once to bf16;
-                    # one bf16 ulp is 2^-7 relative (1e-3 near zero)
-                    (torch.bfloat16, dict(rtol=2 ** -7, atol=1e-3))):
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
         feats = [f.to(dt) for f in feats32]
-        got = kroi.multilevel_roi_align(feats, rois, STRIDES, out_size=7)
-        torch.cuda.synchronize()
-        want = kroi.multilevel_roi_align_plain([f.float() for f in feats],
-                                               rois, STRIDES, out_size=7)
-        ref = want.to(dt).float() if dt == torch.bfloat16 else want
-        torch.testing.assert_close(got.float(), ref, **tol)
-        err = float((got.float() - ref).abs().max())
+        err = 0.0
+        for rname, rs in roi_sets.items():
+            got = kroi.multilevel_roi_align(feats, rs, STRIDES, out_size=7)
+            torch.cuda.synchronize()
+            want = kroi.multilevel_roi_align_plain(
+                [f.float() for f in feats], rs, STRIDES, out_size=7).to(dt)
+            diff = float((got.float() - want.float()).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"roi_align {name} {rname} rois: "
+                                     f"differs from the plain version by up "
+                                     f"to {diff:.3g}")
+            err = max(err, diff)
+            log(f"roi_align {name} {rname} rois B={B} R={R}: identical to "
+                "the plain version")
         ms = cuda_ms(lambda: kroi.multilevel_roi_align(feats, rois, STRIDES,
                                                        out_size=7), 20)
         plain_ms = cuda_ms(lambda: kroi.multilevel_roi_align_plain(
@@ -273,10 +330,10 @@ def check_roi_align(dev):
         nbytes = (touched_bytes(kroi, rois, isz) + rois.numel() * 4
                   + got.numel() * isz)
         bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * got.numel())
-        name = str(dt).split(".")[-1]
         log(f"roi_align {name} B={B} R={R} C={C}: max_abs_err {err:.3g}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-            f"({by}, {nbytes / 1e6:.1f} MB)")
+            f"({by}, {nbytes / 1e6:.1f} MB); "
+            f"{traffic_line(kroi, rois, isz)}")
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          max_abs_err=err)
     return out
@@ -323,6 +380,35 @@ def roi_edge_cases(rng, r=R_TRAIN, b=B, h=H, w=W):
         "collapsed": tiled([[0, 0, 0, 0], [w - 1, h - 1, w - 1, h - 1],
                             [0, 200, 0, 600], [100, h - 1, 900, h - 1]], 0),
     }
+
+
+def time_fwd_sets(dev):
+    """{"<roi set> <path> <dtype>": ms} of the RoIAlign forward kernel on
+    random features, for the mixed rois and each set of `roi_edge_cases`, on
+    the serving path (R=1000, no codes) and the training path (R=512, tie
+    codes): where the forward's time depends on the rois. Uses only the
+    wrapper's signature that every version of the port shares, so
+    `alternate.py` runs it against another checkout's kernels."""
+    from simpledet_torch.kernels import roi_align as kroi
+
+    rng = np.random.RandomState(4)
+    feats32 = [torch.from_numpy(rng.randn(B, h, w, C).astype(np.float32))
+               .to(dev) for h, w in LEVEL_HW]
+    by_dtype = {dt: [f.to(dt) for f in feats32]
+                for dt in (torch.float32, torch.bfloat16)}
+    out = {}
+    for path, r, codes in (("serving", R, False),
+                           ("training", R_TRAIN, True)):
+        sets = {"mixed": mixed_rois(rng, dev, r)}
+        sets.update({k: torch.from_numpy(v).to(dev)
+                     for k, v in roi_edge_cases(rng, r).items()})
+        for rname, rois in sets.items():
+            for dt, feats in by_dtype.items():
+                name = f"{rname} {path} {str(dt).split('.')[-1]}"
+                out[name] = cuda_ms(lambda: kroi.roi_align_fwd_cuda(
+                    feats, rois, STRIDES, with_codes=codes), 20)
+                log(f"roi_align_fwd set {name}: kernel {out[name]:.4f} ms")
+    return out
 
 
 def time_bwd_sets(dev):
@@ -433,7 +519,7 @@ def check_roi_align_train(dev):
             log(f"roi_align_fwd with codes {name} B={B} R={R_TRAIN} C={C}: "
                 f"kernel {ms:.4f} ms (without codes {ms_nocodes:.4f}), plain "
                 f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, "
-                f"{nbytes / 1e6:.1f} MB)")
+                f"{nbytes / 1e6:.1f} MB); {traffic_line(kroi, rois, isz)}")
             fwd[name] = dict(ms=ms, ms_without_codes=ms_nocodes,
                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                              max_abs_err=fwd_err)
@@ -703,6 +789,7 @@ def main():
     nms = check_nms(dev)
     roi = check_roi_align(dev)
     fwd_train, bwd = check_roi_align_train(dev)
+    time_fwd_sets(dev)
     time_bwd_sets(dev)
     serve_counts, ms_img = serve(dev, smi)
     train_counts, ms_step, split = train(dev, smi)

@@ -2,24 +2,37 @@
 //
 // Forward: replaces simpledet_tpu/kernels/roi_align_pallas.py::_fwd_kernel
 // (RoIAlignV2 with 2 x 2 samples per bin, max-pooled, FPN level by the area
-// rule plus the long-side clamp). One block per roi, threads over channels:
+// rule plus the long-side clamp). One block per roi:
 //  - the first 4P threads compute the roi's 2P y-samples and 2P x-samples
-//    (bilinear taps and weights) and the empty-bin flags into shared memory,
-//    in fp32 and in the same order of operations as the plain PyTorch version
+//    (bilinear taps and weights) and the empty-bin flags into shared memory
+//    (`roi_setup`, shared with the backward), in fp32 and in the same order
+//    of operations as the plain PyTorch version
 //    (kernels/roi_align.py::multilevel_roi_align_plain);
-//  - then each thread walks the P x P bins for its channels: 4 samples x 4
-//    taps, each tap a read of C contiguous values, so a warp reads 32
-//    neighbouring channels in one transaction; the max is taken in fp32 and
-//    written once, in the features' dtype, to [B*R, P, P, C].
+//  - then one group of threads per bin row, 4 channels a thread (16-byte
+//    loads in fp32, 8 in bf16; one channel a thread when C % 4 != 0, where
+//    rows are not 16-byte aligned), walks the row's 2P x-samples left to
+//    right. A bin row taps at most 4 feature rows; each column it reaches is
+//    loaded once at each distinct one of them into one of two column slots
+//    in registers, which the next sample and bin read again. Each sample is
+//    the bilinear sum in the plain version's order, the max is taken in fp32
+//    and written once, in the features' dtype, to [B*R, P, P, C].
 //  - With a tie-code buffer (training), each output value also gets one byte
 //    whose bit 2*sy+sx is set when that sample reaches the bin max: the
 //    Pallas kernel's [BR, 2, 2, P, P, C] bf16 sample mask at one eighth of
-//    its bytes. Empty bins get code 0. Without the buffer (serving) the
-//    kernel is compiled without the code path.
-// Bound: bytes. The output (100 MB at B=2, R=1000, C=256, fp32) is written
-// once, and the feature cells the rois touch are read; the taps of one roi
-// overlap, and the block's reads of them hit L1/L2, so device-memory traffic
-// stays near that minimum without staging windows in shared memory.
+//    its bytes, stored 4 at a time. Empty bins get code 0. Without the
+//    buffer (serving) the kernel is compiled without the code path.
+// What bounds it. The bound is bytes: the feature cells the rois touch (115
+// MB at B=2, R=1000, C=256, fp32) and the output (100 MB). The taps of a roi
+// repeat, though (49 bins x 16 taps read 1.57 GB at those shapes), and the
+// first design, one channel a thread with 16 scalar tap loads per bin, was
+// bound by instructions per output value rather than by L2 bytes: serving
+// all its taps from L1 barely helped (PERF.md section 6). This one issues
+// one vector load per distinct cell of a bin row and 4 channels (485 MB of
+// loads at those shapes, `chip_smoke.fwd_traffic`), forms addresses once
+// per column and keeps the samples in registers. What is left is the issue
+// and latency of the per-sample arithmetic (4 products and 3 sums per tap
+// set, none fused under --fmad=false), and in fp32 the feature reads that
+// miss L2 (the finest level's maps exceed it).
 //
 // Backward: replaces roi_align_pallas.py::_bwd_kernel. Each bin's g is
 // split evenly over its tied samples (g / popcount(code), the Pallas
@@ -118,6 +131,17 @@ __device__ __forceinline__ float clip(float v, float hi) {
   return fminf(fmaxf(v, 0.0f), hi);
 }
 
+// a[lvl] for a level known only at run time, by selects: indexing a kernel
+// parameter with a run-time value makes every thread copy it to local memory.
+template <typename F>
+__device__ __forceinline__ F at_level(const F (&a)[kMaxLevels], int lvl) {
+  F v = a[0];
+#pragma unroll
+  for (int l = 1; l < kMaxLevels; ++l)
+    if (l == lvl) v = a[l];
+  return v;
+}
+
 // The roi's taps in shared memory: axis 0 is y, 1 is x; entry bin*2+sample.
 struct Taps {
   int lo[2][2 * kMaxOut];
@@ -150,12 +174,13 @@ __device__ __forceinline__ int roi_setup(const Levels& lv,
     const int axis = t / (2 * p);           // 0: y, 1: x
     const int s = t % (2 * p);              // bin * 2 + sample
     const int bin = s / 2, smp = s % 2;
-    const float scale = lv.scale[lvl];
+    const float scale = at_level(lv.scale, lvl);
     const float lo = (axis == 0 ? ry1 : rx1) * scale;
     const float hi = (axis == 0 ? ry2 : rx2) * scale;
     const float bin_sz = (hi - lo) / (float)p;
     const float vmax =
-        (float)((axis == 0 ? lv.height[lvl] : lv.width[lvl]) - 1);
+        (float)((axis == 0 ? at_level(lv.height, lvl)
+                           : at_level(lv.width, lvl)) - 1);
     const float start = clip(lo + (float)bin * bin_sz, vmax);
     const float end = clip(lo + ((float)bin + 1.0f) * bin_sz, vmax);
     const float fr = smp == 0 ? (float)(1.0 / 3.0) : (float)(2.0 / 3.0);
@@ -170,53 +195,183 @@ __device__ __forceinline__ int roi_setup(const Levels& lv,
   return lvl;
 }
 
-template <typename T, bool kCodes>
-__global__ void roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
-                                     T* __restrict__ out,
-                                     uint8_t* __restrict__ codes,
-                                     int rois_per_image, int channels, int p) {
+// V adjacent channels of one cell: 4 (one 16-byte load in fp32, 8 bytes in
+// bf16) or 1.
+template <int V, typename T>
+__device__ __forceinline__ void load_v(const T* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    load4(p, v);
+  } else {
+    v[0] = load(p);
+  }
+}
+template <int V, typename T>
+__device__ __forceinline__ void store_v(T* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    store4(p, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    store(p, v[0]);
+  }
+}
+
+// The forward's block: one group of threads per bin row, one thread per V
+// channels rounded up to a warp and at most 64 (a thread loops over further
+// channel groups), at most kFwdThreads threads (groups then loop over bin
+// rows), so that two blocks share an SM: one block's prologue runs while the
+// other loads.
+constexpr int kFwdThreads = 448;
+__host__ __device__ __forceinline__ int fwd_row_threads(int channels,
+                                                        int v) {
+  const int want = ((channels + v - 1) / v + 31) / 32 * 32;
+  return want < 64 ? want : 64;
+}
+int fwd_block_threads(int channels, int v, int p) {
+  const int row = fwd_row_threads(channels, v);
+  const int groups = kFwdThreads / row;
+  return row * (p < groups ? p : groups);
+}
+
+// One block per roi, one group of threads per bin row, V channels a thread.
+// A bin row's samples tap at most 4 feature rows: the lo and hi rows of its
+// two sample rows, each distinct one loaded once per column. The group walks
+// the row's x samples left to right with two column slots in registers; a
+// sample's lo and hi taps read whichever slot holds their column, and a
+// column held by neither is loaded into a slot that no tap of this sample
+// needs. With taps that do not decrease along x (start and end grow with
+// the bin), a column not held is beyond every held one, so every distinct
+// (row, column) cell of the bin row is loaded once; the slots are keyed by
+// the column, so any order stays correct. Offsets inside one image's map are
+// 32-bit (the launch checks that they fit).
+template <typename T, int V, bool kCodes>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
+                     T* __restrict__ out, uint8_t* __restrict__ codes,
+                     int rois_per_image, int channels, int p) {
   __shared__ Taps tp;
   const int roi = blockIdx.x;
   const int img = roi / rois_per_image;
   const int lvl = roi_setup(lv, rois, roi, p, tp);
   __syncthreads();
 
-  const int height = lv.height[lvl], width = lv.width[lvl];
-  const T* feat = static_cast<const T*>(lv.feat[lvl]) +
-                  (size_t)img * height * width * channels;
-  const size_t base = (size_t)roi * p * p * channels;
-  for (int c = threadIdx.x; c < channels; c += blockDim.x) {
-    for (int py = 0; py < p; ++py) {
+  const int row_threads = fwd_row_threads(channels, V);
+  const int lane = threadIdx.x % row_threads;
+  const int height = at_level(lv.height, lvl);
+  const unsigned row_stride = (unsigned)at_level(lv.width, lvl) * channels;
+  const T* feat = static_cast<const T*>(at_level(lv.feat, lvl)) +
+                  (size_t)img * height * row_stride;
+  for (int py = threadIdx.x / row_threads; py < p;
+       py += blockDim.x / row_threads) {
+    T* orow = out + ((size_t)roi * p + py) * p * channels;
+    uint8_t* crow =
+        kCodes ? codes + ((size_t)roi * p + py) * p * channels : nullptr;
+    const bool row_empty = tp.empty[0][py];
+    // the bin row's tap rows (lo, hi of sample row 0, lo, hi of sample row
+    // 1) as offsets, and for each the first earlier slot with the same row
+    // (-1: load it)
+    const int y0 = tp.lo[0][2 * py], y1 = tp.hi[0][2 * py];
+    const int y2 = tp.lo[0][2 * py + 1], y3 = tp.hi[0][2 * py + 1];
+    const unsigned r0 = y0 * row_stride, r1 = y1 * row_stride;
+    const unsigned r2 = y2 * row_stride, r3 = y3 * row_stride;
+    const float alpha[2] = {tp.w[0][2 * py], tp.w[0][2 * py + 1]};
+    const int same1 = y1 == y0 ? 0 : -1;
+    const int same2 = y2 == y0 ? 0 : y2 == y1 ? 1 : -1;
+    const int same3 = y3 == y0 ? 0 : y3 == y1 ? 1 : y3 == y2 ? 2 : -1;
+
+    for (int c = lane * V; c < channels; c += row_threads * V) {
+      // column x's cells at the 4 tap rows, each distinct row loaded once
+      // (register arrays take constant indices only, hence the selects)
+      auto fetch = [&](int x, float (&f)[4][V]) {
+        const T* q = feat + (unsigned)(x * channels + c);
+        load_v<V>(q + r0, f[0]);
+        if (same1 < 0) {
+          load_v<V>(q + r1, f[1]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) f[1][k] = f[0][k];
+        }
+        if (same2 < 0) {
+          load_v<V>(q + r2, f[2]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            f[2][k] = same2 == 0 ? f[0][k] : f[1][k];
+        }
+        if (same3 < 0) {
+          load_v<V>(q + r3, f[3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            f[3][k] = same3 == 0 ? f[0][k] : same3 == 1 ? f[1][k] : f[2][k];
+        }
+      };
+      float s0[4][V], s1[4][V];   // the column slots, holding x0 and x1
+      int x0 = -1, x1 = -1;
       for (int px = 0; px < p; ++px) {
-        float m = 0.0f;
-        uint8_t code = 0;
-        if (!(tp.empty[0][py] || tp.empty[1][px])) {
-          float v[4];
-          m = -INFINITY;
-          for (int sy = 0; sy < 2; ++sy) {
-            const int ys = py * 2 + sy;
-            const float a = tp.w[0][ys];
-            const T* rl = feat + (size_t)tp.lo[0][ys] * width * channels + c;
-            const T* rh = feat + (size_t)tp.hi[0][ys] * width * channels + c;
-            for (int sx = 0; sx < 2; ++sx) {
-              const int xs = px * 2 + sx;
-              const float b = tp.w[1][xs];
-              const size_t xl = (size_t)tp.lo[1][xs] * channels;
-              const size_t xh = (size_t)tp.hi[1][xs] * channels;
-              v[sy * 2 + sx] = (1.0f - a) * (1.0f - b) * load(rl + xl) +
-                               a * (1.0f - b) * load(rh + xl) +
-                               (1.0f - a) * b * load(rl + xh) +
-                               a * b * load(rh + xh);
-              m = fmaxf(m, v[sy * 2 + sx]);
+        float m[V];
+        uint32_t code = 0;
+#pragma unroll
+        for (int k = 0; k < V; ++k) m[k] = 0.0f;
+        if (!(row_empty || tp.empty[1][px])) {
+          float v[2][2][V];        // [sy][sx], kept for the codes
+#pragma unroll
+          for (int k = 0; k < V; ++k) m[k] = -INFINITY;
+#pragma unroll
+          for (int sx = 0; sx < 2; ++sx) {
+            const int s = 2 * px + sx;
+            const int xl = tp.lo[1][s], xh = tp.hi[1][s];
+            const float b = tp.w[1][s];
+            // the slots of the lo and hi columns, loading what neither holds
+            int lo_slot = xl == x0 ? 0 : xl == x1 ? 1 : -1;
+            if (lo_slot < 0) {
+              lo_slot = xh == x0 ? 1 : 0;
+              if (lo_slot == 0) { fetch(xl, s0); x0 = xl; }
+              else { fetch(xl, s1); x1 = xl; }
+            }
+            int hi_slot = xh == xl ? lo_slot : xh == x0 ? 0 : xh == x1 ? 1
+                                                                      : -1;
+            if (hi_slot < 0) {
+              hi_slot = 1 - lo_slot;
+              if (hi_slot == 0) { fetch(xh, s0); x0 = xh; }
+              else { fetch(xh, s1); x1 = xh; }
+            }
+            auto sample = [&](const float (&lo)[4][V],
+                              const float (&hi)[4][V]) {
+#pragma unroll
+              for (int sy = 0; sy < 2; ++sy) {
+                const float a = alpha[sy];
+#pragma unroll
+                for (int k = 0; k < V; ++k) {
+                  v[sy][sx][k] = (1.0f - a) * (1.0f - b) * lo[2 * sy][k] +
+                                 a * (1.0f - b) * lo[2 * sy + 1][k] +
+                                 (1.0f - a) * b * hi[2 * sy][k] +
+                                 a * b * hi[2 * sy + 1][k];
+                  m[k] = fmaxf(m[k], v[sy][sx][k]);
+                }
+              }
+            };
+            if (lo_slot == 0) {
+              if (hi_slot == 0) sample(s0, s0);
+              else sample(s0, s1);
+            } else {
+              if (hi_slot == 0) sample(s1, s0);
+              else sample(s1, s1);
             }
           }
           if (kCodes) {
-            for (int s = 0; s < 4; ++s) code |= (v[s] >= m) << s;
+#pragma unroll
+            for (int k = 0; k < V; ++k)
+#pragma unroll
+              for (int bit = 0; bit < 4; ++bit)
+                code |= (uint32_t)(v[bit >> 1][bit & 1][k] >= m[k])
+                        << (8 * k + bit);
           }
         }
-        const size_t o = base + ((size_t)py * p + px) * channels + c;
-        store(out + o, m);
-        if (kCodes) codes[o] = code;
+        const int o = px * channels + c;
+        store_v<V>(orow + o, m);
+        if (kCodes) {
+          if constexpr (V == 4) *reinterpret_cast<uint32_t*>(crow + o) = code;
+          else crow[o] = (uint8_t)code;
+        }
       }
     }
   }
@@ -562,10 +717,31 @@ roi_align_bwd_kernel(Levels lv, GradMaps gm, TileGrid tg,
   }
 }
 
-int block_threads(int channels, int out_size) {
-  int threads = ((channels + 31) / 32) * 32;
-  threads = threads < 4 * out_size ? ((4 * out_size + 31) / 32) * 32 : threads;
-  return threads > 256 ? 256 : threads;
+// Launch the forward for one dtype and code path: 4 channels a thread when
+// every row of every map, the output and the codes are aligned for it.
+template <typename T, bool kCodes>
+int launch_fwd(const Levels& lv, const float* rois, T* out, uint8_t* codes,
+               int n, int rois_per_image, int channels, int p,
+               cudaStream_t s) {
+  bool vec = channels % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0 &&
+             reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+  for (int l = 0; l < lv.n_level; ++l) {
+    vec = vec && reinterpret_cast<uintptr_t>(lv.feat[l]) % (4 * sizeof(T)) == 0;
+    // the kernel's 32-bit offsets inside one image's map
+    if ((long long)lv.height[l] * lv.width[l] * channels > INT_MAX)
+      return cudaErrorInvalidValue;
+  }
+  if ((long long)p * p * channels > INT_MAX) return cudaErrorInvalidValue;
+  if (vec)
+    roi_align_fwd_kernel<T, 4, kCodes>
+        <<<n, fwd_block_threads(channels, 4, p), 0, s>>>(
+            lv, rois, out, codes, rois_per_image, channels, p);
+  else
+    roi_align_fwd_kernel<T, 1, kCodes>
+        <<<n, fwd_block_threads(channels, 1, p), 0, s>>>(
+            lv, rois, out, codes, rois_per_image, channels, p);
+  return cudaGetLastError();
 }
 
 // Raise the kernel's shared-memory limit to `smem` and launch it.
@@ -613,25 +789,21 @@ int simpledet_roi_align_fwd(const Levels* levels, const float* rois, void* out,
   if (n == 0) return 0;
   if (bad_shape(levels, out_size)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = block_threads(channels, out_size);
   if (is_bf16) {
     auto* o = static_cast<__nv_bfloat16*>(out);
-    if (codes)
-      roi_align_fwd_kernel<__nv_bfloat16, true><<<n, threads, 0, s>>>(
-          *levels, rois, o, codes, rois_per_image, channels, out_size);
-    else
-      roi_align_fwd_kernel<__nv_bfloat16, false><<<n, threads, 0, s>>>(
-          *levels, rois, o, nullptr, rois_per_image, channels, out_size);
-  } else {
-    auto* o = static_cast<float*>(out);
-    if (codes)
-      roi_align_fwd_kernel<float, true><<<n, threads, 0, s>>>(
-          *levels, rois, o, codes, rois_per_image, channels, out_size);
-    else
-      roi_align_fwd_kernel<float, false><<<n, threads, 0, s>>>(
-          *levels, rois, o, nullptr, rois_per_image, channels, out_size);
+    return codes ? launch_fwd<__nv_bfloat16, true>(*levels, rois, o, codes, n,
+                                                   rois_per_image, channels,
+                                                   out_size, s)
+                 : launch_fwd<__nv_bfloat16, false>(*levels, rois, o, nullptr,
+                                                    n, rois_per_image,
+                                                    channels, out_size, s);
   }
-  return cudaGetLastError();
+  auto* o = static_cast<float*>(out);
+  return codes ? launch_fwd<float, true>(*levels, rois, o, codes, n,
+                                         rois_per_image, channels, out_size, s)
+               : launch_fwd<float, false>(*levels, rois, o, nullptr, n,
+                                          rois_per_image, channels, out_size,
+                                          s);
 }
 
 // Bytes of RoiTaps scratch the backward needs for n rois.

@@ -1,14 +1,22 @@
-"""A Python transcription of the port's NMS kernel (`simpledet_torch/csrc/
-nms.cu`), run on the CPU where the kernel cannot run: the triangular tile index
-and packed stripes of the mask launch, and the scan's block-wise resolution
-(ffs over each block's candidates against its diagonal words, the kept rows'
-words OR-ed into `removed` by four row groups). Keep flags must be identical to
-`nms_keep_sorted_plain` and to the JAX package's Pallas kernel run in interpret
-mode.
+"""Python transcriptions of the port's kernels, run on the CPU where the
+kernels cannot run.
 
-The suppression bits come from the plain version's `pair_suppression`: the IoU
-arithmetic is held on the card (`tests/test_torch_kernels.py`), the word
-bookkeeping here.
+NMS (`simpledet_torch/csrc/nms.cu`): the triangular tile index and packed
+stripes of the mask launch, and the scan's block-wise resolution (ffs over each
+block's candidates against its diagonal words, the kept rows' words OR-ed into
+`removed` by four row groups). Keep flags must be identical to
+`nms_keep_sorted_plain` and to the JAX package's Pallas kernel run in interpret
+mode. The suppression bits come from the plain version's `pair_suppression`:
+the IoU arithmetic is held on the card (`tests/test_torch_kernels.py`), the
+word bookkeeping here.
+
+RoIAlign forward (`roi_align_fwd_kernel` in `csrc/roi_align.cu`): each bin
+row's walk along x with its two column slots and its deduplicated tap rows,
+and which slot and row each of a sample's four taps reads. Outputs and tie
+codes must be identical to `multilevel_roi_align_plain`, and the cells it
+loads per roi are counted against `chip_smoke.fwd_traffic`. The taps and
+weights come from the plain version's `_sample_taps` (the prologue's
+arithmetic is held on the card).
 """
 import numpy as np
 import pytest
@@ -19,6 +27,7 @@ import jax.numpy as jnp
 import chip_smoke
 from simpledet_tpu.kernels.nms_pallas import nms_keep_sorted_pallas
 from simpledet_torch.kernels import nms as knms
+from simpledet_torch.kernels import roi_align as kroi
 
 BLOCK = 64
 
@@ -109,3 +118,132 @@ def test_nms_block_resolution(name):
             jnp.asarray(boxes[i]), jnp.asarray(valid[i]), thr,
             interpret=True))
         np.testing.assert_array_equal(got, pallas)
+
+
+# ------------------------------------------------------- RoIAlign forward
+
+P = 7
+STRIDES = chip_smoke.STRIDES
+
+
+def fwd_bin_row(fmap, rows, alpha, cols, beta, empty):
+    """One bin row of roi_align_fwd_kernel, all channels at once.
+
+    fmap [H, W, C] float32 (the roi's level and image); rows = the 4 tap rows
+    (lo, hi of sample row 0, lo, hi of sample row 1), alpha their 2 weights;
+    cols [P, 2, 2] (bin, sample, lo/hi) tap columns, beta [P, 2]; empty [P].
+    Returns out [P, C], codes [P, C] uint8 and the cells loaded."""
+    one = np.float32(1.0)
+    c = fmap.shape[-1]
+    out, codes = np.zeros((P, c), np.float32), np.zeros((P, c), np.uint8)
+    loads = 0
+    # the first earlier slot holding the same row: that row is not reloaded
+    same = [next((j for j in range(k) if rows[j] == rows[k]), None)
+            for k in range(4)]
+
+    def column(x):
+        nonlocal loads
+        f = []
+        for k in range(4):
+            if same[k] is None:
+                f.append(fmap[rows[k], x])
+                loads += 1
+            else:
+                f.append(f[same[k]])
+        return f
+
+    slots, held = [None, None], [-1, -1]   # two column slots, their columns
+    for px in range(P):
+        if empty[px]:
+            continue
+        val = {}
+        for sx in range(2):
+            xl, xh = cols[px, sx]
+            b = beta[px, sx]
+            lo_slot = held.index(xl) if xl in held else None
+            if lo_slot is None:      # into the slot the hi tap does not need
+                lo_slot = 1 if xh == held[0] else 0
+                slots[lo_slot], held[lo_slot] = column(xl), xl
+            if xh == xl:
+                hi_slot = lo_slot
+            elif xh in held:
+                hi_slot = held.index(xh)
+            else:
+                hi_slot = 1 - lo_slot
+                slots[hi_slot], held[hi_slot] = column(xh), xh
+            lo, hi = slots[lo_slot], slots[hi_slot]
+            for sy in range(2):
+                a = alpha[sy]
+                val[sy, sx] = ((one - a) * (one - b) * lo[2 * sy]
+                               + a * (one - b) * lo[2 * sy + 1]
+                               + (one - a) * b * hi[2 * sy]
+                               + a * b * hi[2 * sy + 1])
+        m = np.full(c, -np.inf, np.float32)
+        for v in val.values():
+            m = np.maximum(m, v)
+        out[px] = m
+        codes[px] = sum((val[sy, sx] >= m).astype(np.uint8) << (2 * sy + sx)
+                        for sy in range(2) for sx in range(2))
+    return out, codes, loads
+
+
+def fwd_launch(feats, rois):
+    """roi_align_fwd_kernel over every roi: out [B, R, P, P, C], codes
+    [B*R, P, P, C] and the cells each roi loads [B*R]."""
+    b, r = rois.shape[:2]
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    rois_f = rois.reshape(-1, 4)
+    lvl = kroi.roi_level_index(rois_f, level_hw, STRIDES, 224, 4, P)
+    (yl, yh, alpha), (xl, xh, beta), empty = (
+        [t.numpy() for t in grp] if isinstance(grp, tuple) else grp.numpy()
+        for grp in kroi._sample_taps(rois_f, lvl, level_hw, STRIDES, P))
+    cols = np.stack([xl, xh], 3)                    # [N, P, 2, 2]
+    maps = [f.numpy() for f in feats]
+    c = maps[0].shape[-1]
+    out = np.zeros((b * r, P, P, c), np.float32)
+    codes = np.zeros((b * r, P, P, c), np.uint8)
+    loads = np.zeros(b * r, np.int64)
+    for n in range(b * r):
+        fmap = maps[int(lvl[n])][n // r]
+        for py in range(P):
+            rows = (yl[n, py, 0], yh[n, py, 0], yl[n, py, 1], yh[n, py, 1])
+            out[n, py], codes[n, py], k = fwd_bin_row(
+                fmap, rows, alpha[n, py], cols[n], beta[n], empty[n, py])
+            loads[n] += k
+    return out.reshape(b, r, P, P, c), codes, loads
+
+
+
+def fwd_cases():
+    """Mixed rois and each edge-case set on the main path's pyramid, with
+    C=8 and 24 rois per image; random features and 4 x 4 patches (ties)."""
+    rng = np.random.RandomState(12)
+    feats = [torch.from_numpy(rng.randn(2, h, w, 8).astype(np.float32))
+             for h, w in chip_smoke.LEVEL_HW]
+    sets = {"mixed": chip_smoke.mixed_rois(rng, "cpu", 24)}
+    sets.update({k: torch.from_numpy(v) for k, v in
+                 chip_smoke.roi_edge_cases(rng, 24).items()})
+    return {"random": feats, "patches": chip_smoke.patches(rng, feats)}, sets
+
+
+@pytest.mark.parametrize("kind", ["random", "patches"])
+@pytest.mark.parametrize("roi_set", ["mixed", "identical", "wide", "edges",
+                                     "collapsed"])
+def test_roi_align_fwd_traversal(roi_set, kind):
+    """Outputs and codes identical to the plain version; each roi loads each
+    distinct tap row of a bin row once per distinct tap column
+    (`chip_smoke.fwd_traffic`, which sizes the kernel's traffic), never more
+    than its tap reads and never fewer than its distinct cells."""
+    feats_by_kind, sets = fwd_cases()
+    feats, rois = feats_by_kind[kind], sets[roi_set]
+    out, codes, loads = fwd_launch(feats, rois)
+    want, want_codes = kroi.multilevel_roi_align_plain(feats, rois, STRIDES,
+                                                       with_codes=True)
+    np.testing.assert_array_equal(out, want.numpy())
+    np.testing.assert_array_equal(codes, want_codes.numpy())
+    taps, planned, cells = (t.numpy() for t in chip_smoke.fwd_traffic(
+        kroi, rois))
+    np.testing.assert_array_equal(loads, planned)
+    assert (cells <= loads).all() and (loads <= taps).all()
+    print(f"{roi_set}: tap reads {taps.sum()}, loads {loads.sum()}, "
+          f"distinct per roi {cells.sum()} cells")

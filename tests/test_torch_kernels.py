@@ -130,9 +130,9 @@ def test_nms_kernel_matches_plain(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_roi_align_kernel_matches_plain(cuda, dtype):
-    """fp32 within 1e-4 of the plain version (the same float32 operations in
-    the same order); bf16 against the plain fp32 result rounded once to bf16,
-    within one bf16 ulp (2^-7 relative, 1e-3 near zero)."""
+    """Bit for bit: fp32 identical to the plain version (the same float32
+    operations in the same order), bf16 identical to the plain fp32 result
+    rounded once to bf16."""
     rng = np.random.RandomState(5)
     dt = getattr(torch, dtype)
     feats = [f.to(cuda, dt) for f in pyramid(rng, 2, 200, 336, 256)]
@@ -143,11 +143,80 @@ def test_roi_align_kernel_matches_plain(cuda, dtype):
     assert kroi.launches == before + 1 and got.dtype == dt
     want = kroi.multilevel_roi_align_plain([f.float() for f in feats], rois,
                                            STRIDES, out_size=7)
-    if dt == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    else:
-        torch.testing.assert_close(got.float(), want.to(dt).float(),
-                                   rtol=2 ** -7, atol=1e-3)
+    assert torch.equal(got, want.to(dt))
+
+
+def roi_set_for(rng, roi_set, r):
+    if roi_set == "mixed":
+        return rois_for(rng, 2, r, 800, 1344)
+    return torch.from_numpy(chip_smoke.roi_edge_cases(rng, r, 2, 800,
+                                                      1344)[roi_set])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tied", [False, True], ids=["random", "patches"])
+@pytest.mark.parametrize("roi_set", ["mixed", "identical", "wide", "edges",
+                                     "collapsed"])
+@pytest.mark.parametrize("r, with_codes", [(1000, False), (512, True)],
+                         ids=["serving", "training"])
+def test_roi_align_forward_kernel_is_exact(cuda, dtype, tied, roi_set, r,
+                                           with_codes):
+    """The forward at the serving shapes (R=1000, no codes) and the training
+    shapes (R=512, tie codes), on mixed rois and chip_smoke's edge cases,
+    random and patchy features: outputs identical to the plain version's
+    (bf16: the plain fp32 result rounded once), codes identical."""
+    rng = np.random.RandomState(10 + tied)
+    dt = getattr(torch, dtype)
+    feats = pyramid(rng, 2, 200, 336, 256)
+    if tied:
+        feats = patchy(rng, feats)
+    feats = [f.to(cuda, dt) for f in feats]
+    rois = roi_set_for(rng, roi_set, r).to(cuda)
+    got = kroi.roi_align_fwd_cuda(feats, rois, STRIDES, with_codes=with_codes)
+    want = kroi.multilevel_roi_align_plain([f.float() for f in feats], rois,
+                                           STRIDES, with_codes=with_codes)
+    torch.cuda.synchronize()
+    if with_codes:
+        (got, codes), (want, want_codes) = got, want
+        assert torch.equal(codes, want_codes)
+    assert torch.equal(got, want.to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [36, 37])
+def test_roi_align_forward_any_channel_count(cuda, dtype, channels):
+    """Channels that fill no whole group of 64 threads (36: 4 a thread) or
+    do not come in fours (37: one a thread): outputs and codes identical to
+    the plain version's; at 36 the backward, which takes channels in fours,
+    against the plain backward."""
+    rng = np.random.RandomState(12)
+    dt = getattr(torch, dtype)
+    feats = [f.to(cuda, dt) for f in patchy(rng, pyramid(rng, 2, 200, 336,
+                                                         channels))]
+    rois = rois_for(rng, 2, 200, 800, 1344).to(cuda)
+    out = kroi.roi_align_fwd_cuda(feats, rois, STRIDES)
+    got, codes = kroi.roi_align_fwd_cuda(feats, rois, STRIDES,
+                                         with_codes=True)
+    want, want_codes = kroi.multilevel_roi_align_plain(
+        [f.float() for f in feats], rois, STRIDES, with_codes=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want.to(dt)) and torch.equal(got, want.to(dt))
+    assert torch.equal(codes, want_codes)
+    if channels % 4:
+        return
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    g = torch.from_numpy(rng.randn(*got.shape).astype(np.float32)).to(cuda, dt)
+    grads = kroi.roi_align_bwd_cuda(g, codes, rois, level_hw, strides=STRIDES,
+                                    dtype=dt)
+    plain = kroi.multilevel_roi_align_bwd_plain(
+        g.float(), codes, rois, level_hw, strides=STRIDES, dtype=torch.float32)
+    for gl, wl in zip(grads, plain):
+        scale = float(wl.abs().max())
+        torch.testing.assert_close(gl.float(), wl.to(dt).float(),
+                                   rtol=0 if dtype == "float32" else 2 ** -7,
+                                   atol=1e-5 * scale)
 
 
 @pytest.mark.cuda
