@@ -7,8 +7,9 @@ Runs the test path stage by stage (normalise, backbone + FPN, RPN head,
 proposals, RoIAlign, box head + decode, per-class NMS), timing each stage with
 CUDA events over `count` requests, then traces `count` whole requests with
 torch.profiler for the device's busy share and the top kernels by device time.
-Prints one JSON object with the card's name and power limit. fp32 without
-TF32, as the infer CLI and chip_smoke.py run.
+Prints one JSON object with the card's name and power limit and how the
+config computes (fp32 without TF32, or bf16 with fp32 islands), as the infer
+CLI and chip_smoke.py run.
 """
 import argparse
 import json
@@ -18,7 +19,7 @@ import torch
 
 from simpledet_torch.eval.postprocess import per_class_nms
 from simpledet_torch.infer import (Detector, card_name_and_power, full_fp32,
-                                   synthetic_batch)
+                                   precision, synthetic_batch)
 from simpledet_torch.ops.image import device_normalize
 
 
@@ -119,7 +120,7 @@ def main(argv=None):
         lambda: det.detect(images, im_info), args.count)
     print(json.dumps({
         "card": card_name_and_power(), "shape": [h, w], "batch": args.batch,
-        "count": args.count,
+        "count": args.count, "precision": precision(det.model),
         "stage_ms_per_request": stage_ms,
         "stages_wall_ms_per_request": wall,
         "traced_request_ms": traced_ms,

@@ -1,0 +1,269 @@
+"""The config factories that the flagship configs are built on: a copy of
+`faster_fpn_config` and `standard_transforms` from
+`simpledet_tpu/config_templates.py`, kept in the port so that it imports
+nothing of the JAX package.
+
+`core.config.read_config` serves this module for the import
+`simpledet_tpu.config_templates` while a config runs. Like the config files,
+it imports the repo-root shims (`mxnext.complicate`, `models.FPN.builder`,
+`symbol.builder`, `core.detection_input`, `core.detection_metric`), which
+`read_config` serves as stand-ins at that time. A template that is not copied
+here raises NotImplementedError naming itself.
+"""
+
+
+def __getattr__(name):
+    if name.startswith("__"):
+        raise AttributeError(name)
+    raise NotImplementedError(f"config template {name!r} of "
+                              "simpledet_tpu.config_templates is not ported")
+
+
+def faster_fpn_config(is_train, name, *, depth=50, variant="v1",
+                      fp16=False, schedule_mult=1, backbone=None, neck=None,
+                      rpn_head=None, bbox_head=None, detector=None,
+                      num_class=81, neck_attrs=None, norm_type="fixbn"):
+    from mxnext.complicate import normalizer_factory
+
+    class General:
+        log_frequency = 10
+        batch_image = 2 if is_train else 1
+        loader_worker = 8
+
+    General.name = name.rsplit("/")[-1].rsplit(".")[-1]
+    General.fp16 = fp16
+
+    class KvstoreParam:
+        kvstore = "mesh"
+        batch_image = General.batch_image
+        gpus = list(range(8))
+        fp16 = General.fp16
+
+    class NormalizeParam:
+        normalizer = normalizer_factory(type=norm_type,
+                                        ndev=len(KvstoreParam.gpus))
+
+    class BackboneParam:
+        fp16 = General.fp16
+        normalizer = NormalizeParam.normalizer
+
+    BackboneParam.depth = depth
+
+    class NeckParam:
+        fp16 = General.fp16
+        normalizer = NormalizeParam.normalizer
+
+    class RpnParam:
+        fp16 = General.fp16
+        normalizer = NormalizeParam.normalizer
+        batch_image = General.batch_image
+        nnvm_proposal = True
+        nnvm_rpn_target = True
+
+        class anchor_generate:
+            scale = (8,)
+            ratio = (0.5, 1.0, 2.0)
+            stride = (4, 8, 16, 32, 64)
+            image_anchor = 256
+            max_side = 1400
+
+        class anchor_assign:
+            allowed_border = 0
+            pos_thr = 0.7
+            neg_thr = 0.3
+            min_pos_thr = 0.0
+            image_anchor = 256
+            pos_fraction = 0.5
+
+        class head:
+            conv_channel = 256
+            mean = (0, 0, 0, 0)
+            std = (1, 1, 1, 1)
+
+        class proposal:
+            pre_nms_top_n = 2000 if is_train else 1000
+            post_nms_top_n = 2000 if is_train else 1000
+            nms_thr = 0.7
+            min_bbox_side = 0
+
+        class subsample_proposal:
+            proposal_wo_gt = False
+            image_roi = 512
+            fg_fraction = 0.25
+            fg_thr = 0.5
+            bg_thr_hi = 0.5
+            bg_thr_lo = 0.0
+
+        class bbox_target:
+            num_reg_class = num_class
+            class_agnostic = False
+            weight = (1.0, 1.0, 1.0, 1.0)
+            mean = (0.0, 0.0, 0.0, 0.0)
+            std = (0.1, 0.1, 0.2, 0.2)
+
+    class BboxParam:
+        fp16 = General.fp16
+        normalizer = NormalizeParam.normalizer
+        image_roi = 512
+        batch_image = General.batch_image
+
+        class regress_target:
+            class_agnostic = False
+            mean = (0.0, 0.0, 0.0, 0.0)
+            std = (0.1, 0.1, 0.2, 0.2)
+
+    BboxParam.num_class = num_class
+
+    class RoiParam:
+        fp16 = General.fp16
+        normalizer = NormalizeParam.normalizer
+        out_size = 7
+        stride = (4, 8, 16, 32)
+        roi_canonical_scale = 224
+        roi_canonical_level = 4
+
+    class DatasetParam:
+        if is_train:
+            image_set = ("coco_train2017",)
+        else:
+            image_set = ("coco_val2017",)
+
+    # components -------------------------------------------------------------
+    if backbone is None:
+        from models.FPN import builder as fpn_builder
+        bb_name = {
+            ("v1", 50): "MSRAResNet50V1FPN", ("v1", 101): "MSRAResNet101V1FPN",
+            ("v1b", 50): "ResNet50V1bFPN", ("v1b", 101): "ResNet101V1bFPN",
+            ("v1b", 152): "ResNet152V1bFPN",
+            ("v1d", 50): "ResNet50V1dFPN",
+        }[(variant, depth)]
+        backbone = getattr(fpn_builder, bb_name)
+    from models.FPN.builder import (FPNBbox2fcHead, FPNNeck, FPNRoiAlign,
+                                    FPNRpnHead)
+    from symbol.builder import FasterRcnn
+    neck = neck or FPNNeck
+    rpn_head = rpn_head or FPNRpnHead
+    bbox_head = bbox_head or FPNBbox2fcHead
+    detector = (detector or FasterRcnn)()
+
+    bb = backbone(BackboneParam)
+    for k, v in (neck_attrs or {}).items():
+        setattr(NeckParam, k, v)
+    nk = neck(NeckParam)
+    rh = rpn_head(RpnParam)
+    re = FPNRoiAlign(RoiParam)
+    bh = bbox_head(BboxParam)
+    if is_train:
+        train_sym = detector.get_train_symbol(bb, nk, rh, re, bh)
+        test_sym = None
+        rpn_test_sym = None
+    else:
+        train_sym = None
+        test_sym = detector.get_test_symbol(bb, nk, rh, re, bh)
+        rpn_test_sym = detector.get_rpn_test_symbol(bb, nk, rh)
+
+    class ModelParam:
+        train_symbol = train_sym
+        test_symbol = test_sym
+        rpn_test_symbol = rpn_test_sym
+        from_scratch = False
+        random = True
+        memonger = False
+        memonger_until = "stage3"
+
+        class pretrain:
+            epoch = 0
+            fixed_param = ["conv0", "stage1", "scale", "bias"]
+
+    ModelParam.pretrain.prefix = f"pretrain_model/resnet-{variant}-{depth}"
+
+    n_dev_img = len(KvstoreParam.gpus) * KvstoreParam.batch_image
+
+    class OptimizeParam:
+        class optimizer:
+            type = "sgd"
+            lr = 0.01 / 8 * n_dev_img
+            momentum = 0.9
+            wd = 0.0001
+            clip_gradient = None
+
+        class schedule:
+            begin_epoch = 0
+            end_epoch = 6 * schedule_mult
+            lr_iter = [60000 * 16 * schedule_mult // n_dev_img,
+                       80000 * 16 * schedule_mult // n_dev_img]
+            iter_per_epoch = 90000 * 16 // n_dev_img // 6
+
+        class warmup:
+            type = "gradual"
+            lr = 0.01 / 8 * n_dev_img / 3.0
+            iter = 500
+
+    class TestParam:
+        min_det_score = 0.05
+        max_det_per_image = 100
+        process_roidb = lambda x: x          # noqa: E731
+        process_output = lambda x, y: x      # noqa: E731
+
+        class model:
+            epoch = 6 * schedule_mult
+
+        class nms:
+            type = "nms"
+            thr = 0.5
+
+        class coco:
+            annotation = "data/coco/annotations/instances_val2017.json"
+
+    TestParam.model.prefix = f"experiments/{General.name}/checkpoint"
+
+    transform, data_name, label_name = standard_transforms(is_train)
+    import core.detection_metric as metric
+    metric_list = [
+        metric.AccWithIgnore("RpnAcc", ["rpn_cls_logit", "rpn_label"], []),
+        metric.AccWithIgnore("RcnnAcc", ["bbox_cls_logit", "bbox_label"], []),
+    ]
+    return (General, KvstoreParam, RpnParam, RoiParam, BboxParam,
+            DatasetParam, ModelParam, OptimizeParam, TestParam,
+            transform, data_name, label_name, metric_list)
+
+
+def standard_transforms(is_train, short=800, long=1333, max_num_gt=100):
+    class NormParam:
+        mean = (122.7717, 115.9465, 102.9801)
+        std = (1.0, 1.0, 1.0)
+
+    class ResizeParam:
+        pass
+
+    ResizeParam.short = short
+    ResizeParam.long = long
+
+    class PadParam:
+        pass
+
+    PadParam.short = short
+    PadParam.long = long
+    PadParam.max_num_gt = max_num_gt
+
+    class RenameParam:
+        mapping = dict(image="data")
+
+    from core.detection_input import (ConvertImageFromHwcToChw,
+                                      Flip2DImageBbox, Norm2DImage,
+                                      Pad2DImageBbox, ReadRoiRecord,
+                                      RenameRecord, Resize2DImageBbox)
+    if is_train:
+        transform = [
+            ReadRoiRecord(None), Norm2DImage(NormParam),
+            Resize2DImageBbox(ResizeParam), Flip2DImageBbox(),
+            Pad2DImageBbox(PadParam), ConvertImageFromHwcToChw(),
+            RenameRecord(RenameParam.mapping),
+        ]
+        return transform, ["data"], ["gt_bbox", "im_info"]
+    transform = [
+        ReadRoiRecord(None), Norm2DImage(NormParam),
+        Resize2DImageBbox(ResizeParam), Pad2DImageBbox(PadParam),
+        ConvertImageFromHwcToChw(), RenameRecord(RenameParam.mapping),
+    ]
+    return transform, ["data", "im_info", "im_id", "rec_id"], []

@@ -5,10 +5,15 @@ A config file imports the repo-root shims (`symbol.builder`,
 `core.detection_metric`), and those import the JAX package. While a config
 runs, `read_config` serves every module under those roots as a stand-in that
 only records what the config asked for: each component's class name and param
-class, the normaliser type, and Norm2DImage's mean and std. It restores
+class, the normaliser type, each transform's class name and arguments, and
+Norm2DImage's mean and std. A config built on the JAX package's config
+factories (`from simpledet_tpu.config_templates import faster_fpn_config`)
+gets the port's copy of that module, `simpledet_torch/config_templates.py`,
+which runs against the same stand-ins; any other import of `simpledet_tpu`
+raises NotImplementedError naming the module. `read_config` restores
 `sys.modules` afterwards and returns a `ConfigSpec` that `dsl.py` builds from:
 the test symbol's, or with is_train=True the train symbol's, with what the
-trainer reads (the frozen-parameter patterns, OptimizeParam, batch_image).
+trainer, the loader and the CLIs read.
 
 `patch_config_as_nothrow` and `load_config` are copies of the JAX package's
 (`simpledet_tpu/core/config.py`): a missing attribute on a config class reads
@@ -152,12 +157,23 @@ def _stand_in_module(modname):
     return mod
 
 
+_TEMPLATES = "simpledet_tpu.config_templates"
+
+
 class _StandInFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
-    """Imports any module under the shim roots as a stand-in, and refuses the
-    JAX package (configs built on its config_templates are not read yet)."""
+    """Imports any module under the shim roots as a stand-in, serves the JAX
+    package's config_templates from the port's copy, and refuses every other
+    module of the JAX package."""
 
     def find_spec(self, fullname, path=None, target=None):
         root = fullname.split(".")[0]
+        if fullname == _TEMPLATES:
+            from simpledet_torch import config_templates
+            return importlib.util.spec_from_file_location(
+                fullname, config_templates.__file__)
+        if fullname == root == "simpledet_tpu":
+            return importlib.machinery.ModuleSpec(fullname, self,
+                                                  is_package=True)
         if root == "simpledet_tpu":
             raise NotImplementedError(
                 f"a config that imports {fullname} is not read by the port")
@@ -167,6 +183,10 @@ class _StandInFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
         return None
 
     def create_module(self, spec):
+        if spec.name == "simpledet_tpu":     # a bare package for the copy
+            mod = types.ModuleType(spec.name)
+            mod.__path__ = []
+            return mod
         return _stand_in_module(spec.name)
 
     def exec_module(self, module):
@@ -199,6 +219,16 @@ class ConfigSpec:
     fixed_param: tuple = ()        # ModelParam.pretrain.fixed_param
     optimize: Any = None           # OptimizeParam (nothrow)
     batch_image: Optional[int] = None   # General.batch_image
+    general: Any = None            # General (nothrow): name, loader_worker
+    dataset: Any = None            # DatasetParam (nothrow)
+    model: Any = None              # ModelParam (nothrow): pretrain, random
+    transform: tuple = ()          # the recorded transforms, in order
+    label_name: tuple = ()         # the batch keys the config labels
+
+    @property
+    def name(self):
+        """General.name: the experiment's directory under experiments/."""
+        return self.general.name
 
 
 _ROLES = ("backbone", "neck", "rpn_head", "roi_extractor", "bbox_head")
@@ -246,4 +276,7 @@ def read_config(path, is_train=False):
                       is_train=is_train,
                       fixed_param=tuple(pretrain.fixed_param or ())
                       if pretrain else (),
-                      optimize=optimize, batch_image=general.batch_image)
+                      optimize=optimize, batch_image=general.batch_image,
+                      general=general, dataset=patch_config_as_nothrow(out[5]),
+                      model=model_param, transform=tuple(transform or ()),
+                      label_name=tuple(out[11] or ()))

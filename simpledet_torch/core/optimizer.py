@@ -22,18 +22,23 @@ def freeze_mask(model, fixed_param):
 
 def make_optimizer(model, trainable_mask, *, lr, opt_type="sgd",
                    momentum=0.9, wd=1e-4):
-    """SGD with momentum over the trainable parameters; frozen ones get
+    """The config's optimizer over the trainable parameters; frozen ones get
     requires_grad=False, so they are never decayed and never move.
 
-    torch.optim.SGD(momentum, weight_decay=wd, dampening=0) adds wd * w to
-    the gradient before the momentum (buf = momentum * buf + g + wd * w;
-    w -= lr * buf, the first buf being g + wd * w): exactly optax's
-    add_decayed_weights followed by sgd(momentum), as the JAX package chains
-    them. The caller sets the lr of each step (`set_lr`)."""
-    if opt_type in ("adam", "adamw"):
-        raise NotImplementedError(f"optimizer.type {opt_type!r} is not "
-                                  "ported yet")
-    if opt_type != "sgd":
+    - "sgd": torch.optim.SGD(momentum, weight_decay=wd, dampening=0) adds
+      wd * w to the gradient before the momentum (buf = momentum * buf + g +
+      wd * w; w -= lr * buf, the first buf being g + wd * w): exactly optax's
+      add_decayed_weights followed by sgd(momentum), as the JAX package
+      chains them.
+    - "adam": L2 added to the gradient before the update (optax's
+      add_decayed_weights then adam; torch.optim.Adam's weight_decay).
+    - "adamw": decoupled decay of the trainable leaves (optax's adamw with
+      mask=; torch.optim.AdamW, which multiplies w by 1 - lr * wd before the
+      Adam update, w - lr * (wd * w + update) as optax).
+    Adam's b1 0.9, b2 0.999 and eps 1e-8 are optax's defaults. The caller
+    clips the gradients (`Trainer`) and sets the lr of each step
+    (`set_lr`)."""
+    if opt_type not in ("sgd", "adam", "adamw"):
         raise ValueError(f"unsupported optimizer.type {opt_type!r}; "
                          "supported: sgd, adam, adamw")
     params = []
@@ -41,6 +46,12 @@ def make_optimizer(model, trainable_mask, *, lr, opt_type="sgd",
         p.requires_grad_(bool(trainable_mask[name]))
         if p.requires_grad:
             params.append(p)
+    if opt_type == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=wd or 0.0)
+    if opt_type == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=wd or 0.0)
     return torch.optim.SGD(params, lr=lr, momentum=momentum,
                            weight_decay=wd or 0.0, dampening=0)
 

@@ -1,10 +1,13 @@
 """Learning-rate schedules (counterpart of simpledet_tpu/core/schedule.py):
-multi-factor step decay with constant or gradual warmup, and the
-reference's multi-worker scaling rules.
+multi-factor step decay with constant or gradual warmup, `sequential`
+chaining, the `advanced` cosine, linear and poly decays with optax's
+formulas, the chain that `detection_train.py` builds from a config
+(`from_optimize_param`), and the reference's multi-worker scaling rules.
 
 A schedule is a function of the step count before the update, as optax reads
 it: the first step runs at schedule(0).
 """
+import math
 
 
 def apply_dp_scaling(lr, lr_iter, warmup_iter, num_workers, total_iter=None,
@@ -40,3 +43,49 @@ def warmup_multifactor(base_lr, lr_iters, factor=0.1, warmup_type="gradual",
             return wlr + (base_lr - wlr) * (step / max(warmup_iter, 1))
         return lr
     return sched
+
+
+def sequential(schedules, boundaries):
+    """Chain schedules: from boundaries[i] on, schedules[i + 1] of the steps
+    since that boundary."""
+    def sched(step):
+        lr = schedules[0](step)
+        for s, b in zip(schedules[1:], boundaries):
+            if step >= b:
+                lr = s(step - b)
+        return lr
+    return sched
+
+
+def advanced(base_lr, total_iter, mode="cosine"):
+    """Decay from base_lr over max(total_iter, 1) steps, then hold: optax's
+    cosine_decay_schedule (alpha 0), linear_schedule to 0, or
+    polynomial_schedule to 0 with power 2."""
+    n = max(total_iter, 1)
+    if mode == "cosine":
+        return lambda step: base_lr * (
+            0.5 * (1 + math.cos(math.pi * min(step, n) / n)))
+    power = {"linear": 1, "poly": 2.0}.get(mode)
+    if power is None:
+        raise NotImplementedError(mode)
+    return lambda step: base_lr * (1 - min(max(step, 0), n) / n) ** power
+
+
+def from_optimize_param(opt, iter_per_epoch):
+    """The schedule `detection_train.py::train_net` builds from a config's
+    OptimizeParam (nothrow) on one worker: dp scaling, then either warmup
+    followed by the `lr_mode` decay over the rest of the run, or warmup with
+    multi-factor steps."""
+    total_iter = iter_per_epoch * (opt.schedule.end_epoch or 1)
+    base_lr, lr_iter, warm_iter = apply_dp_scaling(
+        opt.optimizer.lr, opt.schedule.lr_iter or [], opt.warmup.iter or 0,
+        1, total_iter=total_iter,
+        warmup_in_pct=bool(opt.warmup.in_pct))
+    warm = dict(warmup_type=opt.warmup.type or "gradual",
+                warmup_lr=opt.warmup.lr, warmup_iter=warm_iter)
+    if opt.schedule.lr_mode:
+        return sequential(
+            [warmup_multifactor(base_lr, [], **warm),
+             advanced(base_lr, max(total_iter - warm_iter, 1),
+                      mode=opt.schedule.lr_mode)], [warm_iter])
+    return warmup_multifactor(base_lr, lr_iter, **warm)

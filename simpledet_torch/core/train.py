@@ -10,7 +10,7 @@ import torch
 
 from simpledet_torch import resolve_device
 from simpledet_torch.core.optimizer import freeze_mask, make_optimizer, set_lr
-from simpledet_torch.core.schedule import apply_dp_scaling, warmup_multifactor
+from simpledet_torch.core.schedule import from_optimize_param
 from simpledet_torch.dsl import detector_from_config
 from simpledet_torch.models.norm import fold_batch_stats
 from simpledet_torch.ops.image import device_normalize
@@ -49,17 +49,16 @@ class Trainer:
         model, spec = detector_from_config(path, device=device, seed=seed,
                                            is_train=True)
         opt = spec.optimize
-        if opt.schedule.lr_mode:
-            raise NotImplementedError(f"lr_mode {opt.schedule.lr_mode!r} is "
-                                      "not ported yet")
-        total_iter = (opt.schedule.iter_per_epoch or 1) * (
-            opt.schedule.end_epoch or 1)
-        base_lr, lr_iter, warm_iter = apply_dp_scaling(
-            opt.optimizer.lr, opt.schedule.lr_iter or [], opt.warmup.iter or 0,
-            1, total_iter=total_iter, warmup_in_pct=bool(opt.warmup.in_pct))
-        sched = warmup_multifactor(
-            base_lr, lr_iter, warmup_type=opt.warmup.type or "gradual",
-            warmup_lr=opt.warmup.lr, warmup_iter=warm_iter)
+        return cls.from_spec(model, spec,
+                             opt.schedule.iter_per_epoch or 1, seed=seed)
+
+    @classmethod
+    def from_spec(cls, model, spec, iter_per_epoch, *, seed=0):
+        """A Trainer for `model` with the optimizer, schedule (over
+        iter_per_epoch steps an epoch) and frozen parameters of a train
+        ConfigSpec."""
+        opt = spec.optimize
+        sched = from_optimize_param(opt, iter_per_epoch)
         return cls(model, schedule=sched, fixed_param=spec.fixed_param,
                    opt_type=opt.optimizer.type or "sgd",
                    momentum=opt.optimizer.momentum or 0.9,
@@ -101,6 +100,15 @@ class Trainer:
         self._mark("forward")
         total.backward()
         self._mark("backward")
+        self.update()
+        self._mark("optimizer")
+        out = {k: v.detach() for k, v in losses.items()}
+        out["total_loss"] = total.detach()
+        return out
+
+    def update(self):
+        """The optimizer step from the gradients in each parameter's .grad:
+        clip, then the update at the schedule's lr for the step count."""
         if self.clip_gradient:
             # optax.clip: each gradient value clamped to [-c, c]
             params = [p for g in self.optimizer.param_groups
@@ -109,7 +117,3 @@ class Trainer:
         set_lr(self.optimizer, self.schedule(self.step_count))
         self.optimizer.step()
         self.step_count += 1
-        self._mark("optimizer")
-        out = {k: v.detach() for k, v in losses.items()}
-        out["total_loss"] = total.detach()
-        return out

@@ -2,6 +2,8 @@
 simpledet_tpu/dsl.py, which maps the same component names onto Flax modules).
 
 A component the port does not have raises NotImplementedError naming it.
+Each component computes in the dtype its param class asks for (`_dtype`:
+`fp16 = True` means bf16, as in the JAX package); parameters stay fp32.
 """
 import torch
 
@@ -19,6 +21,12 @@ SUPPORTED = {"detector": ("FasterRcnn",), "neck": ("FPNNeck",),
              "bbox_head": ("FPNBbox2fcHead", "Bbox2fcHead")}
 
 
+def _dtype(p):
+    """The compute dtype of a component: bf16 where its param class sets
+    fp16 (`simpledet_tpu/dsl.py::_dtype`), else fp32."""
+    return torch.bfloat16 if getattr(p, "fp16", False) else torch.float32
+
+
 def _require(role, name):
     ok = BACKBONES if role == "backbone" else SUPPORTED[role]
     if name not in ok:
@@ -32,25 +40,27 @@ def build_detector(spec, *, depth=None):
     comps = spec.components
     for role, comp in comps.items():
         _require(role, comp.name)
-        if comp.param is not None and comp.param.fp16:
-            raise NotImplementedError(f"{role} {comp.name}: fp16/bf16 "
-                                      "configs are not ported yet")
     if spec.normalizers not in ((), ("fixbn",), ("fix",)):
         raise NotImplementedError(
             f"normalizer {spec.normalizers}: only fixbn is ported")
 
-    backbone = ResNet(depth or BACKBONES[comps["backbone"].name])
-    neck = FPNNeck(backbone.out_channels, 256)
+    backbone = ResNet(depth or BACKBONES[comps["backbone"].name],
+                      dtype=_dtype(comps["backbone"].param))
+    neck = FPNNeck(backbone.out_channels, 256,
+                   dtype=_dtype(comps["neck"].param))
     p_rpn = comps["rpn_head"].param
+    # as dsl.FPNRpnHead does: the conv head reads the dtype set here
+    p_rpn.dtype = _dtype(p_rpn)
     rpn = FPNRpnHead(p_rpn)
     rpn_module = RpnConvHead(rpn.num_anchor, p_rpn.head.conv_channel or 256,
-                             256)
+                             256, dtype=p_rpn.dtype)
     p_roi = comps["roi_extractor"].param
     p_bbox = comps["bbox_head"].param
     num_reg = 2 if (p_bbox.regress_target.class_agnostic or False) \
         else p_bbox.num_class
     bbox_head = Bbox2fcHead(p_bbox.num_class, num_reg,
-                            p_roi.out_size ** 2 * 256)
+                            p_roi.out_size ** 2 * 256,
+                            dtype=_dtype(p_bbox))
     return FasterRcnn(backbone, neck, rpn_module, rpn, bbox_head, p_roi,
                       p_bbox)
 

@@ -60,10 +60,22 @@ class Detector:
 
 
 def full_fp32():
-    """fp32 configs run in fp32: no TF32 in cuDNN convolutions (PyTorch's
-    default allows it) nor in matrix products."""
+    """fp32 runs in true fp32: no TF32 in cuDNN convolutions (PyTorch's
+    default allows it) nor in matrix products, so an fp32 config and a bf16
+    config's fp32 islands both compute in fp32. bf16 matrix products keep
+    fp32 accumulation throughout (no reduced-precision split-K reduction), as
+    XLA accumulates them."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def precision(model):
+    """How a model computes, for the lines that report a time."""
+    if any(getattr(m, "compute_dtype", None) == torch.bfloat16
+           for m in model.modules()):
+        return "bf16 with fp32 islands, TF32 off"
+    return "fp32 without TF32"
 
 
 def card_name_and_power():
@@ -111,8 +123,8 @@ def main(argv=None):
     n_img = args.count * args.batch
     where = card_name_and_power() if det.device.type == "cuda" else "cpu"
     print(f"{dt / n_img * 1000:.3f} ms per image ({n_img / dt:.2f} img/s) "
-          f"at {h}x{w}, batch {args.batch}, incl. per-class NMS, fp32 without "
-          f"TF32, on {where}")
+          f"at {h}x{w}, batch {args.batch}, incl. per-class NMS, "
+          f"{precision(det.model)}, on {where}")
 
 
 if __name__ == "__main__":

@@ -2,13 +2,15 @@
 
 1x1 laterals and 3x3 output convs with bias; the top-down path is a nearest
 2x upsample cropped to the lateral's size; P6 = P5_conv[..., ::2, ::2].
-Returns {"stride4": P2, ..., "stride64": P6}, NCHW.
+Returns {"stride4": P2, ..., "stride64": P6}, NCHW, in the compute dtype
+`dtype` of its convs; the top-down adds run in it too.
 """
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from simpledet_torch.models.init import fan_in_uniform_
+from simpledet_torch.models.layers import conv2d
 
 
 def upsample2x_to(x, hw):
@@ -16,12 +18,15 @@ def upsample2x_to(x, hw):
 
 
 class FPNNeck(nn.Module):
-    def __init__(self, in_channels=(256, 512, 1024, 2048), filters=256):
+    def __init__(self, in_channels=(256, 512, 1024, 2048), filters=256,
+                 dtype=torch.float32):
         super().__init__()
         for stage, cin in zip(range(2, 6), in_channels):
-            self.add_module(f"P{stage}_lateral", nn.Conv2d(cin, filters, 1))
+            self.add_module(f"P{stage}_lateral",
+                            conv2d(cin, filters, 1, compute_dtype=dtype))
             self.add_module(f"P{stage}_conv",
-                            nn.Conv2d(filters, filters, 3, padding=1))
+                            conv2d(filters, filters, 3, padding=1,
+                                   compute_dtype=dtype))
 
     def forward(self, feats):
         lat = [getattr(self, f"P{s}_lateral")(feats[f"c{s}"])

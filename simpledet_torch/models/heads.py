@@ -3,14 +3,16 @@ simpledet_tpu/models/heads.py::Bbox2fcHead, bbox_head_loss and
 bbox_head_predict).
 
 RoI features arrive as [B, R, P, P, C] and are flattened in HWC order, as in
-the JAX package, so fc1's weight is the transposed Flax kernel. The logits run
-in fp32.
+the JAX package, so fc1's weight is the transposed Flax kernel. fc1 and fc2
+run in the head's compute dtype; the logits and deltas run in fp32 (fp32
+islands), as do the losses and the prediction.
 """
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from simpledet_torch.models.init import fan_in_uniform_, normal_
+from simpledet_torch.models.layers import linear
 from simpledet_torch.ops.bbox import clip_boxes, decode_boxes
 from simpledet_torch.ops.losses import smooth_l1
 
@@ -19,10 +21,11 @@ class Bbox2fcHead(nn.Module):
     """roi_feat [B, R, P, P, C] -> (cls_logit [B, R, num_class],
     bbox_delta [B, R, 4 * num_reg_class])."""
 
-    def __init__(self, num_class, num_reg_class, in_features, hidden=1024):
+    def __init__(self, num_class, num_reg_class, in_features, hidden=1024,
+                 dtype=torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden)
-        self.fc2 = nn.Linear(hidden, hidden)
+        self.fc1 = linear(in_features, hidden, compute_dtype=dtype)
+        self.fc2 = linear(hidden, hidden, compute_dtype=dtype)
         self.cls_logit = nn.Linear(hidden, num_class)
         self.bbox_delta = nn.Linear(hidden, 4 * num_reg_class)
 

@@ -5,11 +5,17 @@ the stem is a 7x7/2 conv with pad 3, FrozenBN, relu, then a 3x3/2 max-pool
 with pad 1. Flax's SAME padding on the 1x1/2 convs is no padding. Module names
 follow the Flax tree (`stage1_unit1.conv1`, ...), so `weights.from_flax`
 maps names one to one.
+
+`dtype` is the compute dtype of every conv (`models/layers.py`): the input is
+cast to it first, and FrozenBN, relu, the max-pool and the residual adds run
+in it, as in the JAX package.
 """
+import torch
 from torch import nn
 from torch.nn import functional as F
 
 from simpledet_torch.models.init import lecun_normal_
+from simpledet_torch.models.layers import conv2d
 from simpledet_torch.models.norm import FrozenBN
 
 # depth -> per-stage unit counts
@@ -22,22 +28,23 @@ RESNET_UNITS = {
 }
 
 
-def conv(cin, cout, k, stride=1, pad=0):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
+def conv(cin, cout, k, stride=1, pad=0, dtype=torch.float32):
+    return conv2d(cin, cout, k, stride=stride, padding=pad, bias=False,
+                  compute_dtype=dtype)
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin, filters, stride):
+    def __init__(self, cin, filters, stride, dtype=torch.float32):
         super().__init__()
-        self.conv1 = conv(cin, filters, 1, stride)
+        self.conv1 = conv(cin, filters, 1, stride, dtype=dtype)
         self.bn1 = FrozenBN(filters)
-        self.conv2 = conv(filters, filters, 3, 1, 1)
+        self.conv2 = conv(filters, filters, 3, 1, 1, dtype=dtype)
         self.bn2 = FrozenBN(filters)
-        self.conv3 = conv(filters, filters * 4, 1)
+        self.conv3 = conv(filters, filters * 4, 1, dtype=dtype)
         self.bn3 = FrozenBN(filters * 4)
         self.has_sc = cin != filters * 4 or stride != 1
         if self.has_sc:
-            self.sc_conv = conv(cin, filters * 4, 1, stride)
+            self.sc_conv = conv(cin, filters * 4, 1, stride, dtype=dtype)
             self.sc_bn = FrozenBN(filters * 4)
 
     def forward(self, x):
@@ -51,9 +58,10 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """NCHW in, {"c2": ..., "c5": ...} stage features out."""
 
-    def __init__(self, depth=50):
+    def __init__(self, depth=50, dtype=torch.float32):
         super().__init__()
-        self.conv0 = conv(3, 64, 7, 2, 3)
+        self.dtype = dtype
+        self.conv0 = conv(3, 64, 7, 2, 3, dtype=dtype)
         self.bn0 = FrozenBN(64)
         self.units = []
         cin = 64
@@ -63,14 +71,14 @@ class ResNet(nn.Module):
             for unit in range(n_unit):
                 name = f"stage{stage + 1}_unit{unit + 1}"
                 stride = 2 if stage > 0 and unit == 0 else 1
-                self.add_module(name, Bottleneck(cin, filters, stride))
+                self.add_module(name, Bottleneck(cin, filters, stride, dtype))
                 cin = filters * 4
                 names.append(name)
             self.units.append(names)
         self.out_channels = (256, 512, 1024, 2048)
 
     def forward(self, x):
-        x = F.relu(self.bn0(self.conv0(x)))
+        x = F.relu(self.bn0(self.conv0(x)))     # conv0 computes in dtype
         x = F.max_pool2d(x, 3, 2, 1)
         feats = {}
         for stage, names in enumerate(self.units):

@@ -1,7 +1,10 @@
 """FPN RPN: the shared conv head, its losses and the proposals.
 
 Counterpart of `simpledet_tpu/models/rpn.py` (RpnConvHead and FPNRpnHead).
-The head's cls and reg convs run in fp32. Logits leave the convs as NCHW
+The shared 3x3 conv runs in the head's compute dtype (the JAX package's
+`FPNRpnHead` gives `RpnConvHead` the dtype that `dsl.FPNRpnHead` sets on the
+param class: bf16 for an fp16 config); its output is cast to fp32, and the
+cls and reg convs run in fp32 (fp32 islands). Logits leave the convs as NCHW
 [B, kA, H, W]; they are permuted to NHWC before the reshape to [B, H*W*A, k],
 so anchors run in (y, x, a) order as in the JAX package.
 """
@@ -10,6 +13,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from simpledet_torch.models.init import normal_
+from simpledet_torch.models.layers import conv2d
 from simpledet_torch.ops.anchors import generate_anchor_grid
 from simpledet_torch.ops.bbox import clip_boxes, decode_boxes
 from simpledet_torch.ops.losses import smooth_l1
@@ -31,9 +35,11 @@ def to_nhwc_rows(x, k):
 class RpnConvHead(nn.Module):
     """Shared-weight head applied to each pyramid level."""
 
-    def __init__(self, num_anchor, conv_channel=256, in_channels=256):
+    def __init__(self, num_anchor, conv_channel=256, in_channels=256,
+                 dtype=torch.float32):
         super().__init__()
-        self.rpn_conv = nn.Conv2d(in_channels, conv_channel, 3, padding=1)
+        self.rpn_conv = conv2d(in_channels, conv_channel, 3, padding=1,
+                               compute_dtype=dtype)
         self.rpn_cls = nn.Conv2d(conv_channel, 2 * num_anchor, 1)
         self.rpn_reg = nn.Conv2d(conv_channel, 4 * num_anchor, 1)
 

@@ -15,7 +15,8 @@ prints each step's losses, then ms/step and img/s over the steps after the
 first two, and the forward / backward / optimizer split by CUDA events, with
 the card's name and power limit. On the card it then traces 3 more steps
 with torch.profiler and prints the device's idle share and its top kernels.
-The real loader, COCO and checkpoints are not ported yet.
+`python -m simpledet_torch.detection_train` trains on a roidb through the
+loader and writes checkpoints.
 """
 import argparse
 import json
@@ -26,7 +27,7 @@ import torch
 
 from simpledet_torch.breakdown import device_profile
 from simpledet_torch.core.train import Trainer
-from simpledet_torch.infer import card_name_and_power, full_fp32
+from simpledet_torch.infer import card_name_and_power, full_fp32, precision
 
 WARMUP_STEPS = 2
 PROFILED_STEPS = 3
@@ -120,7 +121,8 @@ def main(argv=None):
     n = args.steps - WARMUP_STEPS
     where = card_name_and_power() if on_card else "cpu"
     print(f"{dt / n * 1e3:.3f} ms/step ({n * args.batch / dt:.2f} img/s) at "
-          f"{h}x{w}, batch {args.batch}, fp32 without TF32, on {where}")
+          f"{h}x{w}, batch {args.batch}, {precision(trainer.model)}, "
+          f"on {where}")
     if timer is not None:
         print("per step (CUDA events, synchronised after each step): "
               + ", ".join(f"{k} {v / n:.3f} ms"

@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "simpledet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "simpledet_tpu")
 
 
 def test_reading_and_building_imports_no_jax():
@@ -23,6 +23,11 @@ def test_reading_and_building_imports_no_jax():
         "train, _ = detector_from_config('config/faster_r50v1_fpn_1x.py',"
         " device='cpu', is_train=True)\n"
         "assert train.training and train.rpn.p.proposal.post_nms_top_n == 2000\n"
+        "import simpledet_torch.detection_train, simpledet_torch.detection_test\n"
+        "import simpledet_torch.core.checkpoint\n"
+        "bf16, _ = detector_from_config('config/faster_r50v1_fpn_bf16_1x.py',"
+        " device='cpu')\n"
+        "assert bf16.backbone.dtype is __import__('torch').bfloat16\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(sum(p.numel() for p in model.parameters()))\n")
