@@ -51,9 +51,28 @@ Phases, each fatal on error:
   9. `simpledet_torch.detection_test` on the fp32 config over the same
      images from that checkpoint: result.json and the 12-key COCO summary,
      img/s;
+  then, in a fresh temporary directory with copies of the two configs and
+  their synthetic data (`simpledet_torch/data/synthetic.py`):
+  A. config/flagship_synth_curve.py (R50-FPN, bf16, SyncBN, nothing frozen)
+     at full width in a 1-rank NCCL process group with the model in DDP, on
+     a batch of its synthetic data: phase 5's checks (2 warm-up and 5 timed
+     steps, launches, the kernel step against the plain step at the bf16
+     tolerance), every running statistic moved; ms/step beside phase 7's
+     FrozenBN bf16 step;
+  B. `torchrun --nproc_per_node 1` of this script's `--train-cli-rank`
+     mode: detection_train's train_net on that config for one epoch (4
+     iterations) over NCCL and DDP, writing .params and .batch_stats; then
+     detection_test on them, which must report the running statistics
+     loaded;
+  C. config/converge_test.py (depth-18 FPN, SyncBN) from scratch at batch 8
+     for 400 steps through the train CLI, the three kernels held against
+     their plain versions at its shapes on the trained model's pyramid, then
+     the test CLI on the train set: the loss, AP and AP50 gates of the JAX
+     package's tests/test_convergence.py, AP beside the JAX record;
   10. print the `kernels` JSON line (launches per path: serving, training,
-     serving_bf16, training_bf16, train_cli, eval_cli), the card's line, and
-     {"ok": true, ...}.
+     serving_bf16, training_bf16, train_cli, eval_cli, training_syncbn,
+     train_cli_syncbn, eval_cli_syncbn, converge, converge_eval; times at
+     converge_test's shapes), the card's line, and {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -691,29 +710,107 @@ def plain_kernels():
     return swapped()
 
 
+def term_scales(model):
+    """Context: for one step of a model with SyncBN, {parameter name: the
+    sum over the batch's positions of the absolute terms its gradient adds}
+    for every conv's weight and bias and every SyncBN's gamma and beta (a
+    conv weight's: the weight gradient of |input| and |output gradient|;
+    gamma's: sum |g * x_hat|; a bias's and beta's: sum |g|). Under batch
+    statistics each of these gradients feeds, or is, a batch norm, whose
+    backward takes out the mean: the sum mostly cancels, and bf16 roundings
+    of its terms, not of the result, bound its error. Empty for a model
+    without SyncBN."""
+    import contextlib
+
+    from torch.nn.grad import conv2d_weight
+
+    from simpledet_torch.models.norm import SyncBN
+
+    scales, handles = {}, []
+
+    def dims_of(t):
+        return [d for d in range(t.dim()) if d != 1]
+
+    def conv_hook(name):
+        def fwd(mod, args, out):
+            x = args[0].detach()
+
+            def bwd(g):
+                g = g.float().abs()
+                scales[name + ".weight"] = conv2d_weight(
+                    x.float().abs(), mod.weight.shape, g, mod.stride,
+                    mod.padding, mod.dilation, mod.groups)
+                if mod.bias is not None:
+                    scales[name + ".bias"] = g.sum(dims_of(g))
+            out.register_hook(bwd)
+        return fwd
+
+    def bn_hook(name):
+        def fwd(mod, args, out):
+            x = args[0].detach().float()
+            dims = dims_of(x)
+            dev = x - x.mean(dims, keepdim=True)
+            x_hat = dev * torch.rsqrt((dev * dev).mean(dims, keepdim=True)
+                                      + mod.eps)
+
+            def bwd(g):
+                g = g.float().abs()
+                scales[name + ".gamma"] = (g * x_hat.abs()).sum(dims)
+                scales[name + ".beta"] = g.sum(dims)
+            out.register_hook(bwd)
+        return fwd
+
+    @contextlib.contextmanager
+    def collecting():
+        if any(isinstance(m, SyncBN) for m in model.modules()):
+            for name, m in model.named_modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    handles.append(m.register_forward_hook(conv_hook(name)))
+                elif isinstance(m, SyncBN):
+                    handles.append(m.register_forward_hook(bn_hook(name)))
+        try:
+            yield scales
+        finally:
+            for h in handles:
+                h.remove()
+    return collecting()
+
+
 # a kernel step against a plain step, relative to each gradient's max |grad|:
 # fp32 sums in other orders. In bf16 the two backwards round the feature
 # gradients to bf16 where their fp32 sums fall on either side of a rounding
 # boundary, and every bf16 layer below rounds its gradients again (each
 # rounding is at most 2^-8 of a value); runs on an NVIDIA H100 80GB HBM3 at
 # 700 W measured 0.0063 to 0.0161.
-# 2^-5 is 8 such roundings of the largest value.
+# 2^-5 is 8 such roundings of the largest value. Under SyncBN the
+# backbone's gradients are sums that cancel (`term_scales`): the convs' and
+# SyncBN's gradients are held against their sums of absolute terms, 8
+# roundings of each term; against their own max they reached 0.021-0.032
+# on runs of phase A.
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 
 
-def train(dev, smi, config=CONFIG, path="training"):
+def train(dev, smi, config=CONFIG, path="training", trainer=None,
+          batch=None):
+    """The config's seeded train detector on a synthetic batch, its
+    FrozenBN folded; or, given them, `trainer` on `batch` (images, im_info,
+    gt)."""
     import copy
 
     from simpledet_torch.core.train import Trainer
     from simpledet_torch.infer import precision
+    from simpledet_torch.models.norm import batch_stat_names
     from simpledet_torch.train import PhaseTimer, synthetic_train_batch
 
-    trainer = Trainer.from_config(config, device=dev, seed=0)
+    if trainer is None:
+        trainer = Trainer.from_config(config, device=dev, seed=0)
+        images, im_info, gt = synthetic_train_batch(B, H, W, 0)
+        images = images.to(dev)
+        trainer.fold_batch_stats(images, im_info)
+    else:
+        images, im_info, gt = batch
     model = trainer.model
     how = precision(model)
-    images, im_info, gt = synthetic_train_batch(B, H, W, 0)
-    images = images.to(dev)
-    trainer.fold_batch_stats(images, im_info)
     check_feature_dtype(model, images, im_info, trainer.pixel_norm)
     start = {k: v.clone() for k, v in model.state_dict().items()}
 
@@ -743,11 +840,13 @@ def train(dev, smi, config=CONFIG, path="training"):
     log(f"bbox_cls_loss {got:.6f} equals the rois' mean cross-entropy "
         f"{want:.6f} within 1e-5")
 
+    # seeded heads give near-uniform softmaxes: CE about log(classes) plus
+    # half the logits' variance over the classes (1.3 on the SyncBN path,
+    # whose box-head inputs are batch-normalised, not folded)
+    half_var = float(z.var(-1).mean()) / 2
     first = check(0, trainer.step(images, im_info, gt))
-    # gross checks only: seeded heads give near-uniform softmaxes, CE about
-    # log(classes) plus half the logits' variance (which this check does not
-    # measure); a wrong normalisation is off by orders of magnitude
-    for k, want, tol in (("bbox_cls_loss", np.log(81), 1.0),
+    # gross checks only: a wrong normalisation is off by orders of magnitude
+    for k, want, tol in (("bbox_cls_loss", np.log(81) + half_var, 1.0),
                          ("rpn_cls_loss", np.log(2), 0.2)):
         if abs(first[k] - want) > tol:
             raise AssertionError(f"step 0 {k} {first[k]:.4f} is not near "
@@ -777,13 +876,20 @@ def train(dev, smi, config=CONFIG, path="training"):
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
 
     after = model.state_dict()
-    for name, before in start.items():
-        same = torch.equal(after[name], before)
-        if trainer.trainable[name] == same:
+    for name, trainable in trainer.trainable.items():
+        same = torch.equal(after[name], start[name])
+        if trainable == same:
             raise AssertionError(f"{name}: {'trainable but unchanged' if same else 'frozen but moved'}")
+    stats = batch_stat_names(model)
+    for name in stats:
+        if torch.equal(after[name], start[name]) or not torch.isfinite(
+                after[name]).all():
+            raise AssertionError(f"running statistics {name} did not move "
+                                 "or are not finite")
     n_frozen = sum(not t for t in trainer.trainable.values())
     log(f"{n_frozen} frozen parameters and buffers bit-unchanged, "
-        f"{len(start) - n_frozen} trained ones moved")
+        f"{len(trainer.trainable) - n_frozen} trained ones moved, "
+        f"{len(stats)} running statistics moved and finite")
 
     # one step from a copied state, with the kernels and with plain versions
     saved = (copy.deepcopy(model.state_dict()),
@@ -804,7 +910,8 @@ def train(dev, smi, config=CONFIG, path="training"):
     k_losses, k_grads = one_step()
     read_counts("kernel step", ("nms", "roi_align_fwd", "roi_align_bwd"))
     with plain_kernels():
-        p_losses, p_grads = one_step()
+        with term_scales(model) as terms:
+            p_losses, p_grads = one_step()
         p2_losses, p2_grads = one_step()      # the step's own nondeterminism
     if any(read_counts("plain step", ()).values()):
         raise AssertionError("the plain step launched a kernel")
@@ -813,11 +920,16 @@ def train(dev, smi, config=CONFIG, path="training"):
         if abs(a - b) > 1e-5 * abs(b):
             raise AssertionError(f"{k}: kernels {a} vs plain {b}")
 
-    def worst_of(grads):
+    def worst_of(grads, by_terms=True):
+        """(name, error) of the gradient that differs most from the plain
+        step's, relative to its max |grad|, or, where `term_scales` gave
+        one (and by_terms), to the largest sum of absolute terms of its
+        elements."""
         worst = ("", 0.0)
         for n, g in p_grads.items():
+            scale = terms[n] if by_terms and n in terms else g.abs()
             err = float((grads[n] - g).abs().max()) / max(
-                float(g.abs().max()), 1e-30)
+                float(scale.max()), 1e-30)
             worst = max(worst, (n, err), key=lambda t: t[1])
         return worst
 
@@ -825,10 +937,15 @@ def train(dev, smi, config=CONFIG, path="training"):
     tol = GRAD_TOL[model.backbone.dtype]
     if worst[1] > tol or set(k_grads) != set(p_grads):
         raise AssertionError(f"gradient {worst[0]}: kernels vs plain "
-                             f"{worst[1]:.3g} of its max |grad| > {tol}")
+                             f"{worst[1]:.3g} > {tol}")
+    by_max = worst_of(k_grads, by_terms=False)
     log(f"{path}: kernel step agrees with the plain step: losses within "
         f"1e-5, {len(p_grads)} gradients within {worst[1]:.3g} of their max "
-        f"|grad| (tolerance {tol}; worst {worst[0]}); two plain steps "
+        f"|grad|" + (f" ({len(terms)}, the convs' and SyncBN's, against "
+                     f"their sums of absolute terms; each against its own "
+                     f"max |grad|, all are within {by_max[1]:.3g}, worst "
+                     f"{by_max[0]})" if terms else "")
+        + f" (tolerance {tol}; worst {worst[0]}); two plain steps "
         f"differ by {noise[1]:.3g} ({noise[0]})")
     return counts, ms_step, split
 
@@ -1011,7 +1128,362 @@ def cli_phases(dev, smi):
     return train_counts, eval_counts, stats
 
 
+# ---------------------------------------------------- phases A, B and C
+
+CONFIG_SYNC = "config/flagship_synth_curve.py"
+CONFIG_CONVERGE = "config/converge_test.py"
+N_SYNTH_IMAGES = 4          # 800 x 1200 and 1200 x 800 in turn
+CONVERGE_EPOCHS = 100       # 16 images and their flips at batch 8: 4 an epoch
+JAX_CONVERGE = dict(AP=0.937, AP50=1.000, AP75=1.000)   # one TPU v5e chip
+SUMMARY_KEYS = ["AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+                "AR100", "ARs", "ARm", "ARl"]
+
+
+def in_workdir(root):
+    """The configs' relative paths (data/, experiments/ and the config
+    names that General.name comes from) resolved under `root`: a copy of
+    the two configs there, and the synthetic data they read."""
+    from simpledet_torch.data.synthetic import (make_micro_dataset,
+                                                make_synth_coco)
+
+    os.makedirs(os.path.join(root, "config"))
+    for cfg in (CONFIG_SYNC, CONFIG_CONVERGE):
+        shutil.copyfile(os.path.join(REPO, cfg), os.path.join(root, cfg))
+    make_synth_coco(os.path.join(root, "synth"), n_images=N_SYNTH_IMAGES)
+    make_micro_dataset(os.path.join(root, "converge"), n_images=16,
+                       set_names=("converge_train",))
+    os.environ.update(FLAGSHIP_SYNTH_ROOT=os.path.join(root, "synth"),
+                      FLAGSHIP_CURVE_EPOCHS="1",
+                      CONVERGE_DATA_ROOT=os.path.join(root, "converge"),
+                      CONVERGE_BATCH="8",
+                      CONVERGE_EPOCHS=str(CONVERGE_EPOCHS))
+    os.chdir(root)
+    log(f"synthetic data: {N_SYNTH_IMAGES} COCO-shaped images for "
+        f"{CONFIG_SYNC}, 16 micro images for {CONFIG_CONVERGE}")
+
+
+def train_syncbn(dev, smi):
+    """Phase A: config/flagship_synth_curve.py (R50-FPN, bf16, SyncBN,
+    nothing frozen) at full width in a 1-rank NCCL group with the model in
+    DDP, on a batch of its synthetic data through the loader; then the
+    group is left."""
+    from simpledet_torch.core.config import read_config
+    from simpledet_torch.core.train import Trainer
+    from simpledet_torch.data.loader import Loader
+    from simpledet_torch.data.roidb import load_roidb
+    from simpledet_torch.data.transforms import from_config
+    from simpledet_torch.dsl import build_detector
+    from simpledet_torch.models.norm import SyncBN
+    from simpledet_torch.parallel import dist
+
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(dist.free_port()))
+    try:
+        dev = dist.init_from_env("cuda")
+        backend = torch.distributed.get_backend()
+        spec = read_config(CONFIG_SYNC, is_train=True)
+        model = build_detector(spec)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model = model.to(device=dev, memory_format=torch.channels_last)
+        n_sync = sum(isinstance(m, SyncBN) for m in model.modules())
+        trainer = Trainer.from_spec(model.train(), spec, 1, seed=0)
+        roidb = load_roidb(spec.dataset.image_set, spec.dataset.cache_dir)
+        batch = next(iter(Loader(roidb, from_config(spec.transform),
+                                 spec.batch_image, shuffle=False,
+                                 num_workers=0)))
+        images = torch.from_numpy(batch["data"]).to(dev)
+        log(f"training_syncbn: {n_sync} SyncBN layers, "
+            f"{type(trainer.forward_model).__name__} in a {backend} group "
+            f"of {dist.world_size()}, batch {tuple(images.shape)}, "
+            f"{int((batch['gt_bbox'][..., 4] >= 0).sum())} gt boxes")
+        if backend != "nccl" or n_sync != 53 or \
+                type(trainer.forward_model).__name__ != \
+                "DistributedDataParallel":
+            raise AssertionError("phase A must train SyncBN in DDP over NCCL")
+        return train(dev, smi, CONFIG_SYNC, "training_syncbn", trainer,
+                     (images, torch.from_numpy(batch["im_info"]),
+                      torch.from_numpy(batch["gt_bbox"])))
+    finally:
+        dist.destroy()
+        for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE",
+                  "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+
+
+def train_cli_rank(out):
+    """One torchrun rank of phase B: detection_train's train_net on the
+    SyncBN flagship (it joins the group from torchrun's environment); the
+    kernels' launches and the losses into the json file `out`."""
+    from simpledet_torch import detection_train
+
+    history = []
+    zero_counts()
+    trainer = detection_train.train_net(CONFIG_SYNC, device="cuda",
+                                        loss_history=history)
+    torch.cuda.synchronize()
+    from simpledet_torch.kernels import nms as knms
+    from simpledet_torch.kernels import roi_align as kroi
+    from simpledet_torch.parallel import dist
+    with open(out, "w") as f:
+        json.dump(dict(counts={"nms": knms.launches,
+                               "roi_align_fwd": kroi.launches,
+                               "roi_align_bwd": kroi.bwd_launches},
+                       losses=history, steps=trainer.step_count,
+                       ddp=type(trainer.forward_model).__name__,
+                       backend=torch.distributed.get_backend()), f)
+    dist.destroy()
+
+
+def cli_syncbn(dev, smi):
+    """Phase B: `torchrun --nproc_per_node 1` of the train CLI on the SyncBN
+    flagship for one epoch (its 4 images and their flips, 4 iterations);
+    it writes .params and .batch_stats; the test CLI evaluates on them."""
+    from simpledet_torch import detection_test
+    from simpledet_torch.core import checkpoint as ckpt
+    from simpledet_torch.core.config import read_config
+    from simpledet_torch.parallel.dist import free_port
+
+    out = os.path.abspath("train_cli_rank.json")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--master_port", str(free_port()),
+         os.path.join(REPO, "chip_smoke.py"), "--train-cli-rank", out],
+        env=env, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun train CLI exited {run.returncode}:"
+                             f"\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    with open(out) as f:
+        rank = json.load(f)
+    counts = rank["counts"]
+    log(f"train_cli_syncbn path launches {counts}")
+    for name in ("nms", "roi_align_fwd", "roi_align_bwd"):
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "torchrun train CLI")
+    losses = [h["total_loss"] for h in rank["losses"]]
+    if rank["ddp"] != "DistributedDataParallel" or rank["backend"] != \
+            "nccl" or not np.isfinite(losses).all():
+        raise AssertionError(f"torchrun train CLI: {rank}")
+    spec = read_config(CONFIG_SYNC)
+    prefix, epoch = spec.test.model.prefix, spec.test.model.epoch
+    for path in (ckpt.params_path(prefix, epoch),
+                 ckpt.batch_stats_path(prefix, epoch)):
+        if not os.path.exists(path):
+            raise AssertionError(f"the train CLI did not write {path}")
+    stats = ckpt.flatten(ckpt.read_params(ckpt.batch_stats_path(prefix,
+                                                                epoch)))
+    if len(stats) != 106 or not all(np.isfinite(v).all()
+                                    for v in stats.values()):
+        raise AssertionError(f"{len(stats)} running statistics in the file")
+    log(f"train CLI under torchrun: {rank['steps']} iterations in "
+        f"{seconds:.1f} s incl. start-up, NCCL, DDP, total losses "
+        f"{losses}; wrote {ckpt.params_path(prefix, epoch)} and "
+        f"{ckpt.batch_stats_path(prefix, epoch)} ({len(stats)} leaves)")
+
+    eval_stats = {}
+    zero_counts()
+    summary = detection_test.test_net(CONFIG_SYNC, device=dev,
+                                      stats=eval_stats)
+    torch.cuda.synchronize()
+    eval_counts = read_counts("eval_cli_syncbn", ("nms", "roi_align_fwd"))
+    with open(os.path.join("experiments", spec.name, "log.txt")) as f:
+        text = f.read()
+    if "loaded SyncBN running stats" not in text or summary is None or \
+            list(summary) != SUMMARY_KEYS:
+        raise AssertionError(f"the test CLI did not evaluate on the saved "
+                             f"running statistics: {summary}")
+    log(f"eval CLI (SyncBN, running statistics from .batch_stats): "
+        f"{eval_stats['images']} images at batch {eval_stats['batch']}, "
+        f"{eval_stats['img_per_s']:.2f} img/s on {smi}; summary "
+        f"{json.dumps(summary)}")
+    return counts, eval_counts
+
+
+def converge_kernels(dev, trainer, batch):
+    """K1, K2 and K3 at converge_test's shapes (B=8, 128 x 192, P2-P5 of
+    32 x 48 down to 4 x 6, C=256, fp32) on the trained model's SyncBN
+    pyramid: the RoIAlign forward with tie codes on its proposals (32 a
+    image, the train config's image_roi) bit for bit, the backward against
+    the plain backward (1e-5 of each level's max |grad|), and the NMS of its
+    proposal pools (8 x 5 of 128 at 0.7) flag for flag. Times beside each
+    function's bound."""
+    from simpledet_torch.kernels import nms as knms
+    from simpledet_torch.kernels import roi_align as kroi
+    from simpledet_torch.ops.nms import NEG_INF
+
+    model = trainer.model
+    with torch.no_grad():
+        data, im_info = trainer._inputs(batch["data"], batch["im_info"])
+        pyr = model.pyramid(data)
+        rpn_out = model.rpn_module(pyr)
+        boxes, scores = model.rpn.level_candidates(rpn_out, im_info)
+        props, _ = model.rpn.nms_and_select(boxes, scores)
+    strides = tuple(model.p_roi.stride)
+    feats = [pyr[f"stride{st}"].permute(0, 2, 3, 1).contiguous()
+             for st in strides]
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    rois = props[:, :32].contiguous()
+    b, r = rois.shape[:2]
+    c = feats[0].shape[3]
+    out = {}
+    pooled, codes = kroi.roi_align_fwd_cuda(feats, rois, strides,
+                                            with_codes=True)
+    torch.cuda.synchronize()
+    want, want_codes = kroi.multilevel_roi_align_plain(feats, rois, strides,
+                                                       with_codes=True)
+    if not (torch.equal(codes, want_codes) and torch.equal(pooled, want)):
+        raise AssertionError("converge shapes: RoIAlign forward differs")
+    isz = feats[0].element_size()
+    maps = sum(b * h * w * c for h, w in level_hw) * isz
+    nbytes = maps + rois.numel() * 4 + pooled.numel() * isz + codes.numel()
+    bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * pooled.numel())
+    out["roi_align_fwd"] = dict(
+        ms=cuda_ms(lambda: kroi.roi_align_fwd_cuda(
+            feats, rois, strides, with_codes=True), 20),
+        plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_plain(
+            feats, rois, strides, with_codes=True), 3, 1),
+        bound_ms=bms, bound_by=by, max_abs_err=0.0)
+    g = torch.from_numpy(np.random.RandomState(6).randn(
+        *pooled.shape).astype(np.float32)).to(dev)
+    got = kroi.roi_align_bwd_cuda(g, codes, rois, level_hw, strides=strides,
+                                  dtype=torch.float32)
+    torch.cuda.synchronize()
+    ref = kroi.multilevel_roi_align_bwd_plain(g, codes, rois, level_hw,
+                                              strides=strides,
+                                              dtype=torch.float32)
+    err = 0.0
+    for gl, wl in zip(got, ref):
+        scale = float(wl.abs().max())
+        torch.testing.assert_close(gl, wl, rtol=0, atol=1e-5 * scale)
+        err = max(err, float((gl - wl).abs().max()))
+    popcount = sum((codes.int() >> st) & 1 for st in range(4))
+    nbytes = g.numel() * 4 + codes.numel() + rois.numel() * 4 + maps
+    bms, by = bound_ms(nbytes, BWD_OPS_PER_OUT * pooled.numel()
+                       + BWD_OPS_PER_TIED_SAMPLE * float(popcount.sum()))
+    out["roi_align_bwd"] = dict(
+        ms=cuda_ms(lambda: kroi.roi_align_bwd_cuda(
+            g, codes, rois, level_hw, strides=strides, dtype=torch.float32),
+            20),
+        plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_bwd_plain(
+            g, codes, rois, level_hw, strides=strides, dtype=torch.float32),
+            3, 1),
+        bound_ms=bms, bound_by=by, max_abs_err=err)
+    n_level, pre = scores.shape[1:]
+    pool_boxes = boxes.reshape(b * n_level, pre, 4).contiguous()
+    valid = (scores > NEG_INF / 2).reshape(b * n_level, pre)
+    thr = float(model.rpn.p.proposal.nms_thr)
+    keep = knms.nms_keep_sorted(pool_boxes, valid, thr)
+    torch.cuda.synchronize()
+    diff = int((keep != knms.nms_keep_sorted_plain(pool_boxes, valid,
+                                                   thr)).sum())
+    if diff:
+        raise AssertionError(f"converge shapes: {diff} NMS flags differ")
+    nv = valid.sum(1).double()
+    bms, by = bound_ms(pool_boxes.numel() * 4 + 2 * valid.numel(),
+                       float((NMS_OPS_PER_PAIR * nv * (nv - 1) / 2
+                              + NMS_OPS_PER_BOX * nv).sum()))
+    out["nms"] = dict(
+        ms=cuda_ms(lambda: knms.nms_keep_sorted(pool_boxes, valid, thr), 20),
+        plain_ms=cuda_ms(lambda: knms.nms_keep_sorted_plain(
+            pool_boxes, valid, thr), 3, 1),
+        bound_ms=bms, bound_by=by, max_abs_err=0.0)
+    for name, v in out.items():
+        log(f"{name} at converge shapes (B={b}, R={r}, C={c}, levels "
+            f"{level_hw}; NMS {b * n_level}x{pre}@{thr}): kernel "
+            f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+            f"{v['bound_ms']:.6f} ms ({v['bound_by']}), max_abs_err "
+            f"{v['max_abs_err']:.3g}")
+    return out
+
+
+def converge(dev, smi):
+    """Phase C: config/converge_test.py from scratch at batch 8 for
+    CONVERGE_EPOCHS epochs (400 steps) through the train CLI's train_net,
+    then its test CLI on the train set; the gates of the JAX package's
+    tests/test_convergence.py (last 20 steps' mean loss under half the
+    first 20's, AP >= 0.6, AP50 >= 0.95), AP beside the JAX record."""
+    from simpledet_torch import detection_test, detection_train
+    from simpledet_torch.core.config import read_config
+    from simpledet_torch.data.loader import Loader
+    from simpledet_torch.data.roidb import load_roidb
+    from simpledet_torch.data.transforms import from_config
+
+    history = []
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = detection_train.train_net(CONFIG_CONVERGE, device=dev,
+                                        loss_history=history)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_counts = read_counts("converge", ("nms", "roi_align_fwd",
+                                            "roi_align_bwd"))
+    total = np.array([h["total_loss"] for h in history])
+    first, last = float(total[:20].mean()), float(total[-20:].mean())
+    log(f"converge: {len(total)} steps at batch 8 in {seconds:.1f} s "
+        f"(incl. start-up, loader and logging) on {smi}; mean total loss "
+        f"first 20 {first:.4f}, last 20 {last:.4f}")
+    if len(total) != 4 * CONVERGE_EPOCHS or not np.isfinite(total).all():
+        raise AssertionError(f"converge: {len(total)} steps, finite "
+                             f"{bool(np.isfinite(total).all())}")
+
+    spec = read_config(CONFIG_CONVERGE, is_train=True)
+    roidb = load_roidb(spec.dataset.image_set, spec.dataset.cache_dir)
+    batch = next(iter(Loader(roidb, from_config(spec.transform), 8,
+                             shuffle=False, num_workers=0)))
+    kernels = converge_kernels(dev, trainer, batch)
+
+    stats = {}
+    zero_counts()
+    summary = detection_test.test_net(CONFIG_CONVERGE, device=dev,
+                                      stats=stats)
+    torch.cuda.synchronize()
+    eval_counts = read_counts("converge_eval", ("nms", "roi_align_fwd"))
+    log(f"converge eval: {stats['images']} images at batch "
+        f"{stats['batch']}; AP {summary['AP']:.3f}, AP50 "
+        f"{summary['AP50']:.3f}, AP75 {summary['AP75']:.3f} (the JAX "
+        f"package's record, one TPU v5e chip, 400 steps at batch 8: AP "
+        f"{JAX_CONVERGE['AP']:.3f}, AP50 {JAX_CONVERGE['AP50']:.3f}, AP75 "
+        f"{JAX_CONVERGE['AP75']:.3f}); RPN recall gate: waits for the "
+        f"RPN-only detector")
+    gates = {"last 20 < first 20 / 2": last < 0.5 * first,
+             "AP >= 0.6": summary["AP"] >= 0.6,
+             "AP50 >= 0.95": summary["AP50"] >= 0.95}
+    if not all(gates.values()):
+        raise AssertionError(f"converge gates failed: {gates}")
+    result = dict(steps=len(total), first20=first, last20=last,
+                  seconds=seconds, **{k: summary[k] for k in
+                                      ("AP", "AP50", "AP75")})
+    return train_counts, eval_counts, kernels, result
+
+
+def syncbn_phases(dev, smi):
+    """Phases A, B and C in a fresh temporary directory, removed
+    afterwards."""
+    import tempfile
+
+    cwd = os.getcwd()
+    saved = dict(os.environ)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_syncbn_")
+    try:
+        in_workdir(tmp)
+        out = {"training_syncbn": train_syncbn(dev, smi)}
+        out["cli"] = cli_syncbn(dev, smi)
+        out["converge"] = converge(dev, smi)
+    finally:
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
+    if sys.argv[1:2] == ["--train-cli-rank"]:
+        return train_cli_rank(sys.argv[2])
     smi = environment()
     dev = torch.device("cuda", 0)
     from simpledet_torch.kernels import _build
@@ -1034,6 +1506,16 @@ def main():
     paths["training_bf16"], ms_step_bf16, split_bf16 = train(
         dev, smi, CONFIG_BF16, "training_bf16")
     paths["train_cli"], paths["eval_cli"], eval_stats = cli_phases(dev, smi)
+    sync = syncbn_phases(dev, smi)
+    paths["training_syncbn"], ms_step_sync, split_sync = \
+        sync["training_syncbn"]
+    paths["train_cli_syncbn"], paths["eval_cli_syncbn"] = sync["cli"]
+    (paths["converge"], paths["converge_eval"], at_converge,
+     converge_result) = sync["converge"]
+    log(f"training_syncbn: {ms_step_sync:.3f} ms/step "
+        f"({B * 1e3 / ms_step_sync:.2f} img/s) against the FrozenBN bf16 "
+        f"step of this call {ms_step_bf16:.3f} ms/step "
+        f"({B * 1e3 / ms_step_bf16:.2f} img/s), on {smi}")
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -1046,7 +1528,8 @@ def main():
              **launches("nms"), max_abs_err=nms["max_abs_err"],
              ms=nms["ms"], plain_ms=nms["plain_ms"],
              bound_ms=nms["bound_ms"], bound_by=nms["bound_by"],
-             library_ms=None, training=nms["train"]),
+             library_ms=None, training=nms["train"],
+             converge=at_converge["nms"]),
         dict(name="roi_align_fwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:267",
              **launches("roi_align_fwd"),
@@ -1054,7 +1537,8 @@ def main():
              ms=roi["float32"]["ms"], plain_ms=roi["float32"]["plain_ms"],
              bound_ms=roi["float32"]["bound_ms"],
              bound_by=roi["float32"]["bound_by"], library_ms=None,
-             bf16=roi["bfloat16"], with_codes=fwd_train),
+             bf16=roi["bfloat16"], with_codes=fwd_train,
+             converge=at_converge["roi_align_fwd"]),
         dict(name="roi_align_bwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:351",
              **launches("roi_align_bwd"),
@@ -1062,7 +1546,7 @@ def main():
              ms=bwd["float32"]["ms"], plain_ms=bwd["float32"]["plain_ms"],
              bound_ms=bwd["float32"]["bound_ms"],
              bound_by=bwd["float32"]["bound_by"], library_ms=None,
-             bf16=bwd["bfloat16"]),
+             bf16=bwd["bfloat16"], converge=at_converge["roi_align_bwd"]),
     ]
     log(json.dumps({"serving_ms_per_image": ms_img,
                     "training_ms_per_step": ms_step,
@@ -1073,6 +1557,11 @@ def main():
                     "training_bf16_img_per_s": B * 1e3 / ms_step_bf16,
                     "training_bf16_split_ms": split_bf16,
                     "eval_cli_img_per_s": eval_stats["img_per_s"],
+                    "training_syncbn_ms_per_step": ms_step_sync,
+                    "training_syncbn_img_per_s": B * 1e3 / ms_step_sync,
+                    "training_syncbn_split_ms": split_sync,
+                    "converge": converge_result,
+                    "converge_jax_record": JAX_CONVERGE,
                     "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,9 +15,14 @@ a conv kernel is HWIO there and OIHW here, a Dense kernel [in, out] is a
 Linear weight [out, in], and FrozenBN's scale and bias (buffers here) are
 params there.
 
-`.states` holds the port's own optimizer state (`torch.save` of the
-optimizer's state dict and the step count): the JAX package's `.states` is a
-pickle of optax state, which the port does not read.
+SyncBN's running statistics go in `<prefix>-%04d.batch_stats`, the JAX
+package's `batch_stats` collection in the same format. Only rank 0 writes.
+
+`.torch_states` holds the port's own optimizer state (`torch.save` of the
+optimizer's state dict and the step count). The JAX package's `.states` is a
+pickle of optax state: the port neither reads nor writes that name, so
+neither package's resume meets the other's optimizer state
+(`foreign_states` finds one for the caller to report).
 """
 import os
 import struct
@@ -25,6 +30,8 @@ import struct
 import numpy as np
 import torch
 
+from simpledet_torch.models.norm import batch_stat_names
+from simpledet_torch.parallel.dist import rank
 from simpledet_torch.weights import convert_leaf, flax_path, from_flax
 
 _NDARRAY_EXT = 1     # flax.serialization's ExtType code for an ndarray
@@ -249,13 +256,11 @@ def flatten(tree, prefix=()):
     return out
 
 
-def to_flax(model):
-    """The Flax param tree (nested dict of float32 numpy arrays, keys sorted
-    as JAX orders a dict) of a model's parameters and buffers, the inverse of
-    `weights.from_flax`."""
+def _tree(items):
+    """Nested dict of float32 numpy arrays of (torch name, tensor) items, in
+    Flax names and layouts, keys sorted as JAX orders a dict."""
     tree = {}
-    for name, t in sorted(model.state_dict().items(),
-                          key=lambda kv: flax_path(kv[0]).split("/")):
+    for name, t in sorted(items, key=lambda kv: flax_path(kv[0]).split("/")):
         v = t.detach().to("cpu", torch.float32).numpy()
         if name.endswith(".weight"):
             v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
@@ -267,6 +272,21 @@ def to_flax(model):
     return tree
 
 
+def to_flax(model):
+    """The Flax param tree of a model's parameters and buffers outside
+    SyncBN's running statistics, the inverse of `weights.from_flax`."""
+    stats = set(batch_stat_names(model))
+    return _tree((k, v) for k, v in model.state_dict().items()
+                 if k not in stats)
+
+
+def batch_stats_to_flax(model):
+    """The Flax `batch_stats` tree of a model's SyncBN running statistics
+    ({} without SyncBN)."""
+    state = model.state_dict()
+    return _tree((k, state[k]) for k in batch_stat_names(model))
+
+
 # ---------------------------------------------------------------- files
 
 
@@ -275,15 +295,33 @@ def params_path(prefix, epoch):
 
 
 def states_path(prefix, epoch):
+    """The port's optimizer state."""
+    return f"{prefix}-{epoch:04d}.torch_states"
+
+
+def jax_states_path(prefix, epoch):
+    """The JAX package's optimizer state (a pickle of optax state)."""
     return f"{prefix}-{epoch:04d}.states"
 
 
+def batch_stats_path(prefix, epoch):
+    return f"{prefix}-{epoch:04d}.batch_stats"
+
+
 def save_checkpoint(prefix, epoch, model, optimizer=None, step=None):
-    """Write `<prefix>-%04d.params` in the JAX package's format and, with an
-    optimizer, `<prefix>-%04d.states` with its state dict and the step."""
+    """On rank 0 only: write `<prefix>-%04d.params` in the JAX package's
+    format, `<prefix>-%04d.batch_stats` when the model has SyncBN and, with
+    an optimizer, `<prefix>-%04d.torch_states` with its state dict and the
+    step."""
+    if rank() != 0:
+        return
     os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
     with open(params_path(prefix, epoch), "wb") as f:
         f.write(to_bytes(to_flax(model)))
+    stats = batch_stats_to_flax(model)
+    if stats:
+        with open(batch_stats_path(prefix, epoch), "wb") as f:
+            f.write(to_bytes(stats))
     if optimizer is not None:
         torch.save({"optimizer": optimizer.state_dict(), "step": step},
                    states_path(prefix, epoch))
@@ -294,11 +332,37 @@ def read_params(path):
         return from_bytes(f.read())
 
 
+def load_batch_stats(prefix, epoch, model):
+    """Load `<prefix>-%04d.batch_stats` into the model's SyncBN running
+    statistics, which it then evaluates on; returns False, changing
+    nothing, when the file is absent."""
+    path = batch_stats_path(prefix, epoch)
+    if not os.path.exists(path):
+        return False
+    with open(path, "rb") as f:
+        stats = from_bytes(f.read())
+    from_flax(to_flax(model), model, batch_stats=stats)
+    return True
+
+
+def foreign_states(prefix, epoch):
+    """The path of the JAX package's `.states` beside this checkpoint when
+    the port has no optimizer state of its own there, else None: the caller
+    restarts the optimizer and says so."""
+    path = jax_states_path(prefix, epoch)
+    if os.path.exists(path) and not os.path.exists(states_path(prefix,
+                                                                epoch)):
+        return path
+    return None
+
+
 def load_checkpoint(prefix, epoch, model, optimizer=None):
     """Load `<prefix>-%04d.params` into model (every leaf, shapes checked,
     `weights.from_flax`, which copies into the model's tensors where they
-    are); with an optimizer and a `.states` file, its state too. Returns the
-    saved step, or None without a `.states` file."""
+    are); with an optimizer and a `.torch_states` file, its state too.
+    Returns the saved step, or None without a `.torch_states` file (a JAX
+    package's `.states` is not read). SyncBN's statistics load apart
+    (`load_batch_stats`)."""
     from_flax(read_params(params_path(prefix, epoch)), model)
     sp = states_path(prefix, epoch)
     if optimizer is None or not os.path.exists(sp):

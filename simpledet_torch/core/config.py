@@ -4,10 +4,12 @@ A config file imports the repo-root shims (`symbol.builder`,
 `models.FPN.builder`, `mxnext.complicate`, `core.detection_input`,
 `core.detection_metric`), and those import the JAX package. While a config
 runs, `read_config` serves every module under those roots as a stand-in that
-only records what the config asked for: each component's class name and param
-class, the normaliser type, each transform's class name and arguments, and
-Norm2DImage's mean and std. A config built on the JAX package's config
-factories (`from simpledet_tpu.config_templates import faster_fpn_config`)
+only records what the config asked for: each component's class name (for a
+config's subclass of one, the shim class and its `depth`) and param class,
+the normaliser type, each transform's and metric's class name and
+arguments, and Norm2DImage's mean and std. A config built on the JAX
+package's config factories (`from simpledet_tpu.config_templates import
+faster_fpn_config`)
 gets the port's copy of that module, `simpledet_torch/config_templates.py`,
 which runs against the same stand-ins; any other import of `simpledet_tpu`
 raises NotImplementedError naming the module. `read_config` restores
@@ -117,10 +119,11 @@ class Symbol:
     components: tuple
 
 
-class _Normalizer:
+class Normalizer:
+    """A config's normalizer_factory(type=..., ...): its type."""
+
     def __init__(self, type="fixbn", **kwargs):
         self.type = type
-        self.kwargs = kwargs
 
 
 class Norm2DImage(Recorded):
@@ -131,7 +134,7 @@ class Norm2DImage(Recorded):
 
 
 _SHIM_ROOTS = ("symbol", "models", "mxnext", "core")
-_SPECIAL = {"mxnext.complicate": {"normalizer_factory": _Normalizer},
+_SPECIAL = {"mxnext.complicate": {"normalizer_factory": Normalizer},
             "core.detection_input": {"Norm2DImage": Norm2DImage}}
 
 
@@ -150,7 +153,8 @@ def _stand_in_module(modname):
             if name[0].islower():        # `from models.FPN import builder`
                 made[name] = importlib.import_module(f"{modname}.{name}")
             else:
-                made[name] = type(name, (Recorded,), {"__module__": modname})
+                made[name] = type(name, (Recorded,), {"__module__": modname,
+                                                      "_stand_in": True})
         return made[name]
 
     mod.__getattr__ = __getattr__
@@ -204,6 +208,26 @@ def _is_hidden(name):
 class Component:
     name: str        # config-side class name, e.g. "MSRAResNet50V1FPN"
     param: Any       # its nothrow-patched param class, e.g. BackboneParam
+    depth: Optional[int] = None   # a config subclass's `depth` override
+
+
+def _component(comp):
+    """The Component of a config-side instance. A class the config derives
+    from a shim class (`class TinyBackbone(MSRAResNet50V1FPN): depth = 18`)
+    is recorded as that shim class with its `depth`; any other override is
+    not read by the port and raises."""
+    mro = type(comp).__mro__
+    base = next(c for c in mro if "_stand_in" in c.__dict__)
+    overrides = {}
+    for c in reversed(mro[:mro.index(base)]):
+        overrides.update({k: v for k, v in vars(c).items()
+                          if not k.startswith("__")})
+    extra = sorted(set(overrides) - {"depth"})
+    if extra:
+        raise NotImplementedError(f"{type(comp).__name__} overrides {extra} "
+                                  f"of {base.__name__}: not ported")
+    return Component(base.__name__, patch_config_as_nothrow(comp.param),
+                     overrides.get("depth"))
 
 
 @dataclass
@@ -214,9 +238,9 @@ class ConfigSpec:
     components: dict               # role -> Component
     test: Any                      # TestParam (nothrow)
     pixel_norm: Optional[tuple]    # (mean, std) deferred to the device
-    normalizers: tuple             # normaliser types the components name
     is_train: bool = False
     fixed_param: tuple = ()        # ModelParam.pretrain.fixed_param
+    excluded_param: tuple = ()     # ModelParam.pretrain.excluded_param
     optimize: Any = None           # OptimizeParam (nothrow)
     batch_image: Optional[int] = None   # General.batch_image
     general: Any = None            # General (nothrow): name, loader_worker
@@ -224,6 +248,7 @@ class ConfigSpec:
     model: Any = None              # ModelParam (nothrow): pretrain, random
     transform: tuple = ()          # the recorded transforms, in order
     label_name: tuple = ()         # the batch keys the config labels
+    metric_list: tuple = ()        # the recorded core.detection_metric's
 
     @property
     def name(self):
@@ -259,24 +284,22 @@ def read_config(path, is_train=False):
     sym = getattr(model_param, f"{kind}_symbol")
     if not isinstance(sym, Symbol):
         raise NotImplementedError(f"{path}: no {kind} symbol")
-    components = {}
-    for role, comp in zip(_ROLES, sym.components):
-        components[role] = Component(
-            comp.name, patch_config_as_nothrow(comp.param))
-    norms = tuple(sorted({
-        c.param.normalizer.type for c in components.values()
-        if c.param is not None
-        and isinstance(c.param.normalizer, _Normalizer)}))
+    components = {role: _component(comp)
+                  for role, comp in zip(_ROLES, sym.components)}
     pixel_norm = next(((t.mean, t.std) for t in transform or ()
                        if isinstance(t, Norm2DImage)), None)
     pretrain = model_param.pretrain
     return ConfigSpec(detector=sym.detector, components=components,
                       test=patch_config_as_nothrow(test_param),
-                      pixel_norm=pixel_norm, normalizers=norms,
+                      pixel_norm=pixel_norm,
                       is_train=is_train,
                       fixed_param=tuple(pretrain.fixed_param or ())
+                      if pretrain else (),
+                      excluded_param=tuple(pretrain.excluded_param or ())
                       if pretrain else (),
                       optimize=optimize, batch_image=general.batch_image,
                       general=general, dataset=patch_config_as_nothrow(out[5]),
                       model=model_param, transform=tuple(transform or ()),
-                      label_name=tuple(out[11] or ()))
+                      label_name=tuple(out[11] or ()),
+                      metric_list=tuple(out[12] or ()) if len(out) > 12
+                      else ())

@@ -4,20 +4,27 @@ simpledet_tpu/core/optimizer.py).
 Freezing goes by substring of the Flax path of each parameter
 (`weights.flax_path`), as the JAX package (and the reference's DetModule)
 match the '/'-joined param path: any name that contains an entry of
-fixed_param is frozen.
+fixed_param is frozen, unless it also contains an entry of excluded_param.
 The flagship's ["conv0", "stage1", "scale", "bias"] so freezes every bias of
 the model, the FPN's, the RPN's and the box head's included, as it does in
 the JAX package. FrozenBN's scale and bias are buffers here, never trained.
 """
 import torch
 
+from simpledet_torch.models.norm import batch_stat_names
 from simpledet_torch.weights import flax_path
 
 
-def freeze_mask(model, fixed_param):
-    """{torch name: trainable} for every parameter and buffer of model."""
-    return {name: not any(f in flax_path(name) for f in fixed_param or ())
-            for name in model.state_dict()}
+def freeze_mask(model, fixed_param, excluded_param=()):
+    """{torch name: trainable} for every parameter and buffer of model
+    outside SyncBN's running statistics."""
+    stats = set(batch_stat_names(model))
+
+    def frozen(path):
+        return (any(f in path for f in fixed_param or ())
+                and not any(e in path for e in excluded_param or ()))
+    return {name: not frozen(flax_path(name)) for name in model.state_dict()
+            if name not in stats}
 
 
 def make_optimizer(model, trainable_mask, *, lr, opt_type="sgd",

@@ -71,15 +71,17 @@ def advanced(base_lr, total_iter, mode="cosine"):
     return lambda step: base_lr * (1 - min(max(step, 0), n) / n) ** power
 
 
-def from_optimize_param(opt, iter_per_epoch):
+def from_optimize_param(opt, iter_per_epoch, num_hosts=1):
     """The schedule `detection_train.py::train_net` builds from a config's
-    OptimizeParam (nothrow) on one worker: dp scaling, then either warmup
-    followed by the `lr_mode` decay over the rest of the run, or warmup with
-    multi-factor steps."""
+    OptimizeParam (nothrow): dp scaling by the number of hosts (train_net
+    scales by jax.process_count(), one process per host; the port runs one
+    process per device, so the caller passes `parallel.dist.host_count()`),
+    then either warmup followed by the `lr_mode` decay over the rest of the
+    run, or warmup with multi-factor steps."""
     total_iter = iter_per_epoch * (opt.schedule.end_epoch or 1)
     base_lr, lr_iter, warm_iter = apply_dp_scaling(
         opt.optimizer.lr, opt.schedule.lr_iter or [], opt.warmup.iter or 0,
-        1, total_iter=total_iter,
+        num_hosts, total_iter=total_iter,
         warmup_in_pct=bool(opt.warmup.in_pct))
     warm = dict(warmup_type=opt.warmup.type or "gradual",
                 warmup_lr=opt.warmup.lr, warmup_iter=warm_iter)

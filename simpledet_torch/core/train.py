@@ -1,10 +1,20 @@
-"""One training step on one device (counterpart of simpledet_tpu/core/train.py:
-TrainState and make_train_step without a mesh).
+"""One training step (counterpart of simpledet_tpu/core/train.py: TrainState
+and make_train_step).
 
 A step normalises a uint8 batch on the device, runs the detector in train
 mode, sums its losses, backpropagates, and takes the optimizer step at the
-schedule's lr for the step count before the update. DDP, SyncBN, remat and
-QAT are not ported yet.
+schedule's lr for the step count before the update.
+
+Data parallel: when a process group exists (`parallel/dist.py`), the
+detector trains in DistributedDataParallel, one rank a device, each on its
+shard of the global batch. The JAX package averages the loss over the global
+batch; DDP averages the ranks' gradients, so each rank's loss is its share
+of the global mean: the box head's and the RPN regression's divisors are
+constants per image, and the RPN classification's count of valid anchors is
+summed over the group (`models/rpn.py`). SyncBN sums its statistics over the
+group, so its running statistics are the same on every rank: DDP does not
+broadcast buffers. The losses a step returns are averaged over the group,
+the global batch's losses. Remat and QAT are not ported yet.
 """
 import torch
 
@@ -14,32 +24,39 @@ from simpledet_torch.core.schedule import from_optimize_param
 from simpledet_torch.dsl import detector_from_config
 from simpledet_torch.models.norm import fold_batch_stats
 from simpledet_torch.ops.image import device_normalize
+from simpledet_torch.parallel import dist
 
 
 class Trainer:
     """A detector, its optimizer, its schedule and the samplers' generator.
 
-    model: a FasterRcnn; schedule: step -> lr; fixed_param: the freezing
-    substrings; pixel_norm: (mean, std) for uint8 batches;
-    seed: the samplers' torch.Generator seed. `timer`, when set, is called
-    with "forward", "backward" and "optimizer" as each phase of a step
-    ends."""
+    model: a FasterRcnn; schedule: step -> lr; fixed_param and
+    excluded_param: the freezing substrings; pixel_norm: (mean, std) for
+    uint8 batches; seed: the samplers' torch.Generator seed (plus the rank).
+    `timer`, when set, is called with "forward", "backward" and "optimizer"
+    as each phase of a step ends. `aux` holds the last step's detached aux
+    outputs, for the metrics."""
 
-    def __init__(self, model, *, schedule, fixed_param=(), opt_type="sgd",
-                 momentum=0.9, wd=1e-4, clip_gradient=None, pixel_norm=None,
-                 seed=0):
+    def __init__(self, model, *, schedule, fixed_param=(), excluded_param=(),
+                 opt_type="sgd", momentum=0.9, wd=1e-4, clip_gradient=None,
+                 pixel_norm=None, seed=0):
         self.model = model
         self.device = next(model.parameters()).device
         self.schedule = schedule
-        self.trainable = freeze_mask(model, fixed_param)
+        self.trainable = freeze_mask(model, fixed_param, excluded_param)
         self.optimizer = make_optimizer(model, self.trainable,
                                         lr=schedule(0), opt_type=opt_type,
                                         momentum=momentum, wd=wd)
+        self.forward_model = model
+        if dist.is_initialized():
+            self.forward_model = dist.data_parallel(model, self.device)
         self.clip_gradient = clip_gradient
         self.pixel_norm = pixel_norm
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + dist.rank())
         self.step_count = 0
         self.timer = None
+        self.aux = None
 
     @classmethod
     def from_config(cls, path, *, device="cuda", seed=0):
@@ -58,8 +75,9 @@ class Trainer:
         iter_per_epoch steps an epoch) and frozen parameters of a train
         ConfigSpec."""
         opt = spec.optimize
-        sched = from_optimize_param(opt, iter_per_epoch)
+        sched = from_optimize_param(opt, iter_per_epoch, dist.host_count())
         return cls(model, schedule=sched, fixed_param=spec.fixed_param,
+                   excluded_param=spec.excluded_param,
                    opt_type=opt.optimizer.type or "sgd",
                    momentum=opt.optimizer.momentum or 0.9,
                    wd=opt.optimizer.wd or 0.0,
@@ -88,14 +106,15 @@ class Trainer:
     def step(self, images, im_info, gt_bbox):
         """images [B, H, W, 3] (uint8, or float already normalised),
         im_info [B, 3], gt_bbox [B, G, 5] -> {loss name: detached scalar
-        tensor} with "total_loss"; the gradients stay in each parameter's
-        .grad until the next step."""
+        tensor} with "total_loss", averaged over the process group; the
+        gradients stay in each parameter's .grad until the next step."""
         data, im_info = self._inputs(images, im_info)
         gt_bbox = torch.as_tensor(gt_bbox, dtype=torch.float32).to(
             self.device)
         self.optimizer.zero_grad(set_to_none=True)
-        losses, _ = self.model(data, im_info, gt_bbox, mode="train",
-                               generator=self.generator)
+        losses, aux = self.forward_model(data, im_info, gt_bbox, mode="train",
+                                         generator=self.generator)
+        self.aux = {k: v.detach() for k, v in aux.items()}
         total = sum(v.float() for v in losses.values())
         self._mark("forward")
         total.backward()
@@ -104,7 +123,7 @@ class Trainer:
         self._mark("optimizer")
         out = {k: v.detach() for k, v in losses.items()}
         out["total_loss"] = total.detach()
-        return out
+        return dist.mean_over_group(out)
 
     def update(self):
         """The optimizer step from the gradients in each parameter's .grad:

@@ -15,6 +15,12 @@ set>_result.json`; then the contiguous class ids mapped back to COCO's and
 the in-repo COCO evaluation (bbox) against TestParam.coco.annotation. Runs on
 the card unless --device cpu is given.
 
+A SyncBN model evaluates on the running statistics saved beside its
+checkpoint (`.batch_stats`). Without them it normalises with each batch's
+statistics, and then, as test_net does, at batch 1 unless
+TestParam.batch_image is set, so that no image's statistics mix with
+another's; the log says so.
+
 Multi-scale and flip testing, soft-NMS, set-NMS and mesh-sharded eval raise
 NotImplementedError naming themselves.
 """
@@ -26,6 +32,7 @@ import time
 import numpy as np
 
 from simpledet_torch.core.checkpoint import (get_latest_ckpt_epoch,
+                                             load_batch_stats,
                                              load_checkpoint, params_path)
 from simpledet_torch.data.loader import Loader
 from simpledet_torch.data.roidb import load_roidb
@@ -33,6 +40,7 @@ from simpledet_torch.data.transforms import from_config
 from simpledet_torch.eval.coco_eval import COCOEval
 from simpledet_torch.infer import Detector
 from simpledet_torch.logger import config_logger
+from simpledet_torch.models.norm import batch_stat_names
 
 
 def _refuse_unported(t):
@@ -74,8 +82,8 @@ def detection_rows(boxes, scores, classes, valid, batch):
 
 def test_net(config_path, max_images=None, *, device="cuda", stats=None):
     """The COCO summary dict (None without an annotation file). stats, when
-    given, is a dict that gets the image count, seconds and img/s of the
-    forward-and-NMS loop."""
+    given, is a dict that gets the image count, the eval batch, seconds and
+    img/s of the forward-and-NMS loop."""
     det = Detector(config_path, device=device, seed=0)
     spec, t = det.spec, det.spec.test
     _refuse_unported(t)
@@ -93,14 +101,26 @@ def test_net(config_path, max_images=None, *, device="cuda", stats=None):
 
     prefix = t.model.prefix
     epoch = t.model.epoch or get_latest_ckpt_epoch(prefix)
+    syncbn = bool(batch_stat_names(det.model))
+    has_stats = False
     if epoch is not None and os.path.exists(params_path(prefix, epoch)):
         load_checkpoint(prefix, epoch, det.model)
         logger.info(f"loaded {params_path(prefix, epoch)}")
+        if syncbn:
+            has_stats = load_batch_stats(prefix, epoch, det.model)
+            logger.info("loaded SyncBN running stats" if has_stats else
+                        "WARNING: syncbn model without saved running stats; "
+                        "eval uses per-batch statistics")
     else:
         logger.info("WARNING: no checkpoint found, using random params")
 
-    loader = Loader(roidb, from_config(spec.transform),
-                    int(t.batch_image or 4), shuffle=False, num_workers=4,
+    eval_batch = int(t.batch_image or 4)
+    if syncbn and not has_stats and not t.batch_image:
+        eval_batch = 1
+        logger.info("syncbn without running stats: forcing eval batch 1 "
+                    "(per-batch statistics)")
+    loader = Loader(roidb, from_config(spec.transform), eval_batch,
+                    shuffle=False, num_workers=4,
                     keys=("data", "im_info", "im_id"), pad_last=False,
                     aspect_grouping=True)
     score_thr = t.min_det_score or 0.05
@@ -114,7 +134,7 @@ def test_net(config_path, max_images=None, *, device="cuda", stats=None):
     logger.info(f"inference done: {n_done} images in {dt:.1f}s "
                 f"({n_done / max(dt, 1e-9):.2f} img/s)")
     if stats is not None:
-        stats.update(images=n_done, seconds=dt,
+        stats.update(images=n_done, batch=eval_batch, seconds=dt,
                      img_per_s=n_done / max(dt, 1e-9))
 
     if t.process_output:

@@ -3,21 +3,32 @@
 
     python -m simpledet_torch.detection_train --config config/<name>.py \
         [--max-iter N] [--resume] [--device cpu]
+    torchrun --nproc_per_node N -m simpledet_torch.detection_train \
+        --config config/<name>.py [--device cpu]
 
 The flow is train_net's: the config's roidb, keeping the images with gt and
-appending their flips; the threaded loader with the config's own transforms;
-the pretrain (`ModelParam.pretrain.prefix`, matched by Flax path and shape)
-unless the config trains from scratch, or with --resume the newest
-checkpoint; the config's schedule, scaled as train_net scales it; the steps;
-and `experiments/<name>/checkpoint-%04d.params` at each epoch end (every
+appending their flips; the threaded loader with the config's own transforms,
+sharded by rank; the pretrain (`ModelParam.pretrain.prefix`, matched by Flax
+path and shape) unless the config trains from scratch, or with --resume the
+newest checkpoint and its SyncBN running statistics; the config's schedule,
+scaled by the number of hosts as train_net scales it by processes; the
+steps, with the config's metrics and the losses in a Speedometer line every
+`General.log_frequency` steps; and `experiments/<name>/checkpoint-%04d.params`
+(plus `.batch_stats` for SyncBN) at each epoch end (every
 `General.checkpoint_period` epochs, always at the last one and where
---max-iter stops the run), in the JAX package's format, beside the port's own
-`.states`. Runs on the card unless --device cpu is given.
+--max-iter stops the run), in the JAX package's format, beside the port's
+own `.torch_states`; rank 0 writes them and the log file.
 
-Not ported: multi-process training, SyncBN, remat, QAT, KD teachers,
-iteration checkpoints, the profiler window, summaries and the Speedometer's
-metrics; a config that asks for one raises NotImplementedError naming it.
-`python -m simpledet_torch.train` stays the timer on synthetic data.
+Under torchrun (WORLD_SIZE in the environment) each rank joins the process
+group (`parallel/dist.py`: NCCL on the card, gloo with --device cpu), drives
+one device and trains in DDP on its shard of each global batch of
+`General.batch_image` images a rank. Runs on the card unless --device cpu is
+given.
+
+Not ported: remat, QAT, KD teachers, iteration checkpoints, the profiler
+window, summaries and the DetailSpeedometer; a config that asks for one
+raises NotImplementedError naming it. `python -m simpledet_torch.train`
+stays the timer on synthetic data.
 """
 import argparse
 import os
@@ -25,17 +36,20 @@ import time
 
 import torch
 
-from simpledet_torch import resolve_device
-from simpledet_torch.core.checkpoint import (get_latest_ckpt_epoch,
+from simpledet_torch.core.checkpoint import (foreign_states,
+                                             get_latest_ckpt_epoch,
+                                             load_batch_stats,
                                              load_checkpoint, load_pretrain,
                                              save_checkpoint)
 from simpledet_torch.core.config import read_config
+from simpledet_torch.core.metrics import from_config as metrics_from_config
 from simpledet_torch.core.train import Trainer
 from simpledet_torch.data.loader import Loader
 from simpledet_torch.data.roidb import append_flipped, load_roidb
 from simpledet_torch.data.transforms import from_config
 from simpledet_torch.dsl import build_detector
 from simpledet_torch.logger import config_logger
+from simpledet_torch.parallel import dist
 
 # train_net's sampling key is PRNGKey(42); the port seeds its samplers' torch
 # generator with the same number
@@ -57,16 +71,21 @@ def _refuse_unported(spec):
 def train_net(config_path, max_iter_override=None, auto_resume=False, *,
               device="cuda", loss_history=None, seed=None):
     """Train as the config says; returns the Trainer. loss_history, when
-    given, is a list that gets each step's losses as {name: float}. seed
-    seeds the weights' init; None takes train_net's rule: the time when
-    ModelParam.random is set, else 0."""
-    device = resolve_device(device)
+    given, is a list that gets each step's losses (averaged over the
+    process group) as {name: float}. seed seeds the weights' init; None
+    takes train_net's rule: the time when ModelParam.random is set, else 0.
+    Under torchrun's environment this process is one rank of the group."""
+    device = dist.init_from_env(device)
     spec = read_config(config_path, is_train=True)
     _refuse_unported(spec)
     general, model_p, opt = spec.general, spec.model, spec.optimize
     exp_dir = os.path.join("experiments", spec.name)
-    logger = config_logger(exp_dir)
+    logger = config_logger(exp_dir if dist.rank() == 0 else None)
     logger.info(f"config: {config_path}")
+    n_rank = dist.world_size()
+    global_batch = general.batch_image * n_rank
+    logger.info(f"rank {dist.rank()} of {n_rank} ({dist.host_count()} "
+                f"host(s)), global batch {global_batch}")
 
     roidb = load_roidb(spec.dataset.image_set,
                        spec.dataset.cache_dir or "data/cache")
@@ -77,7 +96,7 @@ def train_net(config_path, max_iter_override=None, auto_resume=False, *,
                                + list(spec.label_name)))
     loader = Loader(roidb, from_config(spec.transform), general.batch_image,
                     shuffle=True, num_workers=general.loader_worker or 8,
-                    keys=keys)
+                    rank=dist.rank(), num_ranks=n_rank, keys=keys)
 
     if seed is None:
         seed = int(time.time()) if model_p.random else 0
@@ -100,12 +119,20 @@ def train_net(config_path, max_iter_override=None, auto_resume=False, *,
                                 seed=SAMPLING_SEED)
     if begin_epoch > 0:
         step = load_checkpoint(prefix, begin_epoch, model, trainer.optimizer)
+        if load_batch_stats(prefix, begin_epoch, model):
+            logger.info("restored SyncBN running statistics")
+        jax_states = foreign_states(prefix, begin_epoch)
+        if jax_states:
+            logger.info(f"{jax_states} is the JAX package's optimizer state, "
+                        "not the port's: ignored; the optimizer restarts")
         # without saved optimizer state: a fresh optimizer, the schedule
         # fast-forwarded so that warmup is not replayed
         trainer.step_count = (step if step is not None
                               else begin_epoch * iter_per_epoch)
         logger.info(f"resumed from epoch {begin_epoch}"
-                    + (" (with optimizer state)" if step is not None else ""))
+                    + (" (with optimizer state)" if step is not None else
+                       f" (fresh optimizer, schedule at step "
+                       f"{trainer.step_count})"))
     elif not model_p.from_scratch:
         try:
             n_hit = load_pretrain(model, model_p.pretrain.prefix,
@@ -118,7 +145,9 @@ def train_net(config_path, max_iter_override=None, auto_resume=False, *,
 
     log_freq = general.log_frequency or 10
     period = general.checkpoint_period or 1
+    metrics = metrics_from_config(spec.metric_list)
     steps_this_run = 0
+    tic = time.perf_counter()
 
     def stop():
         return bool(max_iter_override) and steps_this_run >= max_iter_override
@@ -129,14 +158,24 @@ def train_net(config_path, max_iter_override=None, auto_resume=False, *,
             losses = trainer.step(batch["data"], batch["im_info"],
                                   batch["gt_bbox"])
             steps_this_run += 1
+            metrics.update({k: v.cpu().numpy()
+                            for k, v in trainer.aux.items()})
             if loss_history is not None:
                 loss_history.append({k: float(v) for k, v in losses.items()})
             if trainer.step_count % log_freq == 0:
+                # train_net's Speedometer line: samples/s of the global
+                # batch, the lr of the last step, the metrics since the
+                # last line, then the losses
+                speed = log_freq * global_batch / (time.perf_counter() - tic)
                 lr = trainer.schedule(trainer.step_count - 1)
-                logger.info(f"Epoch[{epoch}] Batch [{trainer.step_count}]\t"
-                            f"lr: {lr:.6f}\t" + "\t".join(
-                                f"{k}={float(v):.5f}"
-                                for k, v in losses.items()))
+                logger.info(
+                    f"Epoch[{epoch}] Batch [{trainer.step_count}]\t"
+                    f"Speed: {speed:.2f} samples/sec\tlr: {lr:.6f}\t"
+                    + "\t".join(f"{k}={v:.5f}" for k, v in metrics.get())
+                    + "\t" + "\t".join(f"{k}={float(v):.5f}"
+                                        for k, v in losses.items()))
+                metrics.reset()
+                tic = time.perf_counter()
             if stop():
                 break
         if (epoch + 1) % period == 0 or epoch + 1 == end_epoch or stop():
@@ -158,8 +197,11 @@ def main(argv=None):
                     help="continue from the latest checkpoint in experiments/")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    return train_net(args.config, args.max_iter, auto_resume=args.resume,
-                     device=args.device)
+    try:
+        return train_net(args.config, args.max_iter,
+                         auto_resume=args.resume, device=args.device)
+    finally:
+        dist.destroy()
 
 
 if __name__ == "__main__":

@@ -3,7 +3,11 @@ simpledet_tpu/dsl.py, which maps the same component names onto Flax modules).
 
 A component the port does not have raises NotImplementedError naming it.
 Each component computes in the dtype its param class asks for (`_dtype`:
-`fp16 = True` means bf16, as in the JAX package); parameters stay fp32.
+`fp16 = True` means bf16, as in the JAX package); parameters stay fp32. The
+backbone is normalised as its param class's normalizer says (`_norm`:
+FrozenBN when it names none); the FPN neck and the box head take no norm, as
+in the JAX package. A config's subclass of a backbone (`class
+TinyBackbone(MSRAResNet50V1FPN): depth = 18`) builds its base at its depth.
 """
 import torch
 
@@ -12,6 +16,7 @@ from simpledet_torch.core.config import read_config
 from simpledet_torch.models.faster_rcnn import FasterRcnn
 from simpledet_torch.models.fpn import FPNNeck
 from simpledet_torch.models.heads import Bbox2fcHead
+from simpledet_torch.models.norm import normalizer_factory
 from simpledet_torch.models.resnet import ResNet
 from simpledet_torch.models.rpn import FPNRpnHead, RpnConvHead
 
@@ -27,6 +32,14 @@ def _dtype(p):
     return torch.bfloat16 if getattr(p, "fp16", False) else torch.float32
 
 
+def _norm(p):
+    """The norm factory of a component's param class
+    (`simpledet_tpu/dsl.py::_norm`): its normalizer's type, fixbn without
+    one."""
+    n = getattr(p, "normalizer", None)
+    return normalizer_factory(n.type if n is not None else "fixbn")
+
+
 def _require(role, name):
     ok = BACKBONES if role == "backbone" else SUPPORTED[role]
     if name not in ok:
@@ -40,12 +53,10 @@ def build_detector(spec, *, depth=None):
     comps = spec.components
     for role, comp in comps.items():
         _require(role, comp.name)
-    if spec.normalizers not in ((), ("fixbn",), ("fix",)):
-        raise NotImplementedError(
-            f"normalizer {spec.normalizers}: only fixbn is ported")
 
-    backbone = ResNet(depth or BACKBONES[comps["backbone"].name],
-                      dtype=_dtype(comps["backbone"].param))
+    bb = comps["backbone"]
+    backbone = ResNet(depth or bb.depth or BACKBONES[bb.name],
+                      dtype=_dtype(bb.param), norm=_norm(bb.param))
     neck = FPNNeck(backbone.out_channels, 256,
                    dtype=_dtype(comps["neck"].param))
     p_rpn = comps["rpn_head"].param

@@ -30,8 +30,8 @@ class Detector:
                                                      seed=seed)
         self.device = next(self.model.parameters()).device
         t = self.spec.test
-        self.score_thr = t.min_det_score if t.min_det_score is not None \
-            else 0.05
+        # the JAX package's CLIs read `min_det_score or 0.05`: 0 means 0.05
+        self.score_thr = t.min_det_score or 0.05
         self.nms_thr = (t.nms.thr if t.nms else None) or 0.5
         self.max_det = t.max_det_per_image or 100
 

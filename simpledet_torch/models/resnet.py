@@ -1,14 +1,17 @@
 """ResNet v1 backbone (counterpart of simpledet_tpu/models/resnet.py, v1).
 
 MSRA v1 conventions: the stride sits on the FIRST 1x1 conv of a bottleneck;
-the stem is a 7x7/2 conv with pad 3, FrozenBN, relu, then a 3x3/2 max-pool
+the stem is a 7x7/2 conv with pad 3, a norm, relu, then a 3x3/2 max-pool
 with pad 1. Flax's SAME padding on the 1x1/2 convs is no padding. Module names
 follow the Flax tree (`stage1_unit1.conv1`, ...), so `weights.from_flax`
 maps names one to one.
 
-`dtype` is the compute dtype of every conv (`models/layers.py`): the input is
-cast to it first, and FrozenBN, relu, the max-pool and the residual adds run
-in it, as in the JAX package.
+`norm` makes each norm layer from its channel count
+(`models/norm.py::normalizer_factory`, FrozenBN by default), as the JAX
+package's backbone takes the config's normalizer. `dtype` is the compute
+dtype of every conv (`models/layers.py`): the input is cast to it first, and
+FrozenBN, relu, the max-pool and the residual adds run in it, as in the JAX
+package; SyncBN computes in fp32 and returns the input's dtype.
 """
 import torch
 from torch import nn
@@ -16,7 +19,7 @@ from torch.nn import functional as F
 
 from simpledet_torch.models.init import lecun_normal_
 from simpledet_torch.models.layers import conv2d
-from simpledet_torch.models.norm import FrozenBN
+from simpledet_torch.models.norm import normalizer_factory
 
 # depth -> per-stage unit counts
 RESNET_UNITS = {
@@ -34,18 +37,18 @@ def conv(cin, cout, k, stride=1, pad=0, dtype=torch.float32):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin, filters, stride, dtype=torch.float32):
+    def __init__(self, cin, filters, stride, dtype, norm):
         super().__init__()
         self.conv1 = conv(cin, filters, 1, stride, dtype=dtype)
-        self.bn1 = FrozenBN(filters)
+        self.bn1 = norm(filters)
         self.conv2 = conv(filters, filters, 3, 1, 1, dtype=dtype)
-        self.bn2 = FrozenBN(filters)
+        self.bn2 = norm(filters)
         self.conv3 = conv(filters, filters * 4, 1, dtype=dtype)
-        self.bn3 = FrozenBN(filters * 4)
+        self.bn3 = norm(filters * 4)
         self.has_sc = cin != filters * 4 or stride != 1
         if self.has_sc:
             self.sc_conv = conv(cin, filters * 4, 1, stride, dtype=dtype)
-            self.sc_bn = FrozenBN(filters * 4)
+            self.sc_bn = norm(filters * 4)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -58,11 +61,12 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """NCHW in, {"c2": ..., "c5": ...} stage features out."""
 
-    def __init__(self, depth=50, dtype=torch.float32):
+    def __init__(self, depth=50, dtype=torch.float32, norm=None):
         super().__init__()
+        norm = norm or normalizer_factory("fixbn")
         self.dtype = dtype
         self.conv0 = conv(3, 64, 7, 2, 3, dtype=dtype)
-        self.bn0 = FrozenBN(64)
+        self.bn0 = norm(64)
         self.units = []
         cin = 64
         for stage, (n_unit, filters) in enumerate(
@@ -71,7 +75,8 @@ class ResNet(nn.Module):
             for unit in range(n_unit):
                 name = f"stage{stage + 1}_unit{unit + 1}"
                 stride = 2 if stage > 0 and unit == 0 else 1
-                self.add_module(name, Bottleneck(cin, filters, stride, dtype))
+                self.add_module(name, Bottleneck(cin, filters, stride, dtype,
+                                                 norm))
                 cin = filters * 4
                 names.append(name)
             self.units.append(names)

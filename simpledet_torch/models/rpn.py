@@ -18,6 +18,7 @@ from simpledet_torch.ops.anchors import generate_anchor_grid
 from simpledet_torch.ops.bbox import clip_boxes, decode_boxes
 from simpledet_torch.ops.losses import smooth_l1
 from simpledet_torch.ops.nms import NEG_INF, nms, top_k_stable
+from simpledet_torch.parallel.dist import sum_over_group, world_size
 from simpledet_torch.targets.anchor_target import batched_anchor_target
 from simpledet_torch.targets.proposal import top_proposals
 
@@ -81,8 +82,9 @@ class FPNRpnHead:
 
     def loss(self, gen, level_outputs, gt_bbox, im_info, deterministic=False):
         """(losses, aux): softmax CE over the sampled anchors, divided by
-        their count over the batch, and smooth-L1 (sigma 3) over the kept
-        positives, divided by batch * image_anchor."""
+        their count over the global batch (summed over the process group),
+        and smooth-L1 (sigma 3) over the kept positives, divided by batch *
+        image_anchor."""
         p = self.p.anchor_assign
         keys = level_keys(level_outputs)
         cls_logit = torch.cat([to_nhwc_rows(level_outputs[k][0], 2)
@@ -104,9 +106,12 @@ class FPNRpnHead:
         valid = label >= 0
         logp = torch.log_softmax(cls_logit, dim=-1)
         pick = torch.where(label == 1, logp[..., 1], logp[..., 0])
-        n_valid = valid.sum().clamp(min=1)
+        # the JAX package divides by the valid anchors of the global batch;
+        # DDP averages the ranks' gradients, so each rank's share is scaled
+        # by the world size
+        n_valid = sum_over_group(valid.sum()).clamp(min=1)
         cls_loss = -torch.where(valid, pick, torch.zeros_like(pick)).sum() \
-            / n_valid
+            * world_size() / n_valid
         reg_loss = (weight * smooth_l1(reg_delta - target, 3.0)).sum() / (
             gt_bbox.shape[0] * p.image_anchor)
         return ({"rpn_cls_loss": cls_loss, "rpn_reg_loss": reg_loss},

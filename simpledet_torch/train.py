@@ -11,6 +11,9 @@ pretrained checkpoint.
     python -m simpledet_torch.train --config config/faster_r50v1_fpn_1x.py \
         --shape 800 1333 --batch 2 --steps 20
 
+Under `torchrun --nproc_per_node 1` it trains as a rank of a 1-process
+group (NCCL, the model in DDP, SyncBN's sums through the group).
+
 prints each step's losses, then ms/step and img/s over the steps after the
 first two, and the forward / backward / optimizer split by CUDA events, with
 the card's name and power limit. On the card it then traces 3 more steps
@@ -28,6 +31,7 @@ import torch
 from simpledet_torch.breakdown import device_profile
 from simpledet_torch.core.train import Trainer
 from simpledet_torch.infer import card_name_and_power, full_fp32, precision
+from simpledet_torch.parallel import dist
 
 WARMUP_STEPS = 2
 PROFILED_STEPS = 3
@@ -89,7 +93,8 @@ def main(argv=None):
         ap.error(f"--steps must exceed the {WARMUP_STEPS} warm-up steps")
 
     full_fp32()
-    trainer = Trainer.from_config(args.config, device=args.device,
+    device = dist.init_from_env(args.device)     # a rank under torchrun
+    trainer = Trainer.from_config(args.config, device=device,
                                   seed=args.seed)
     on_card = trainer.device.type == "cuda"
     h, w = args.shape
@@ -136,6 +141,7 @@ def main(argv=None):
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / traced_ms),
             "top_kernels_ms_per_step": top}, indent=1))
+    dist.destroy()
 
 
 if __name__ == "__main__":

@@ -5,13 +5,21 @@
 follow the Flax names, so a leaf `a/b/kernel` becomes `a.b.weight`:
   - a conv kernel goes from HWIO to OIHW;
   - a Dense kernel [in, out] becomes a Linear weight [out, in];
-  - `bias` stays `bias`; FrozenBN `scale` / `bias` land on its buffers.
-Every leaf must map onto a parameter or buffer of the model with the same
-shape, and every parameter and buffer must be given one. `flax_path` is the
-inverse name map.
+  - `bias` stays `bias`; FrozenBN `scale` / `bias` land on its buffers,
+    SyncBN's `gamma` / `beta` and GroupNorm's `scale` / `bias` on their
+    parameters.
+The `batch_stats` collection (SyncBN's running `mean` and `var`) maps the
+same way onto SyncBN's buffers. Every params leaf must map onto a parameter
+or buffer of the model with the same shape, and every parameter and buffer
+outside the running statistics must be given one. `flax_path` is the inverse
+name map.
 """
 import numpy as np
 import torch
+
+from simpledet_torch.models.norm import batch_stat_names, set_has_stats
+
+LEAVES = ("bias", "scale", "gamma", "beta", "mean", "var")
 
 
 def _flatten(tree, prefix=()):
@@ -34,7 +42,7 @@ def convert_leaf(path, value):
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {value.ndim}")
         leaf = "weight"
-    elif leaf not in ("bias", "scale"):
+    elif leaf not in LEAVES:
         raise ValueError(f"{'/'.join(path)}: unknown leaf {leaf!r}")
     return ".".join(mods + [leaf]), torch.from_numpy(
         np.array(value, dtype=np.float32, order="C"))
@@ -42,29 +50,43 @@ def convert_leaf(path, value):
 
 def flax_path(torch_name):
     """'/'-joined Flax path of a torch parameter or buffer name:
-    `a.b.weight` -> `a/b/kernel`; `bias` and `scale` keep their names."""
+    `a.b.weight` -> `a/b/kernel`; every other leaf keeps its name."""
     *mods, leaf = torch_name.split(".")
     return "/".join(mods + ["kernel" if leaf == "weight" else leaf])
 
 
-def from_flax(params, model):
-    """Load the Flax tree `params` into `model` (in place); returns model.
-    Raises on a leaf the model lacks, a model entry left without a leaf, or a
-    shape that differs."""
-    target = model.state_dict()
+def _converted(tree, target, kind):
     state = {}
-    for path, value in _flatten(params):
+    for path, value in _flatten(tree):
         name, tensor = convert_leaf(path, value)
         if name not in target:
-            raise KeyError(f"flax leaf {'/'.join(path)} -> {name}: not in "
-                           "the model")
+            raise KeyError(f"flax {kind} leaf {'/'.join(path)} -> {name}: "
+                           "not in the model")
         if tuple(tensor.shape) != tuple(target[name].shape):
             raise ValueError(f"{name}: flax shape {tuple(tensor.shape)} vs "
                              f"model {tuple(target[name].shape)}")
         state[name] = tensor
     missing = sorted(set(target) - set(state))
     if missing:
-        raise KeyError(f"model entries with no flax leaf: {missing[:8]}"
-                       f"{' ...' if len(missing) > 8 else ''}")
-    model.load_state_dict(state, strict=True)
+        raise KeyError(f"model entries with no flax {kind} leaf: "
+                       f"{missing[:8]}{' ...' if len(missing) > 8 else ''}")
+    return state
+
+
+def from_flax(params, model, batch_stats=None):
+    """Load the Flax tree `params` (and, when given, the `batch_stats`
+    collection) into `model` (in place); returns model. Raises on a leaf the
+    model lacks, a model entry left without a leaf, or a shape that differs.
+    Without batch_stats the running statistics keep their values; with
+    them, SyncBN evaluates on them."""
+    full = model.state_dict()
+    stats = set(batch_stat_names(model))
+    state = _converted(params, {k: v for k, v in full.items()
+                                if k not in stats}, "params")
+    if batch_stats is not None:
+        state.update(_converted(batch_stats, {k: full[k] for k in stats},
+                                "batch_stats"))
+    model.load_state_dict(state, strict=False)
+    if batch_stats is not None:
+        set_has_stats(model)
     return model

@@ -3,7 +3,8 @@
 A `.params` file is flax.serialization.to_bytes of the param tree; the port
 reads and writes it with its own msgpack codec (no flax, no msgpack). Files
 cross between the packages bit for bit, `load_pretrain` finds the same
-leaves as the JAX package's, and the port's `.states` carries its optimizer.
+leaves as the JAX package's, and the port's `.torch_states` carries its
+optimizer.
 """
 import os
 
@@ -51,7 +52,7 @@ def test_jax_checkpoint_read_by_port(flagship_params, tmp_path):
     spec = read_config(FLAGSHIP)
     a, b = build_detector(spec), build_detector(spec)
     assert ckpt.get_latest_ckpt_epoch(prefix) == 3
-    assert ckpt.load_checkpoint(prefix, 3, a) is None     # no .states
+    assert ckpt.load_checkpoint(prefix, 3, a) is None  # no .torch_states
     from_flax(flagship_params, b)
     sa, sb = a.state_dict(), b.state_dict()
     assert len(sa) == 189
@@ -115,7 +116,7 @@ def test_load_pretrain_hits_as_jax(flagship_params, tmp_path):
 
 
 def test_states_resume_the_optimizer(tmp_path):
-    """`.states` holds the optimizer's state and the step count; a fresh
+    """`.torch_states` holds the optimizer's state and the step count; a fresh
     optimizer loads it back exactly."""
     from simpledet_torch.core.optimizer import make_optimizer
 

@@ -126,7 +126,7 @@ def test_test_cli_matches_jax_test_net(in_tmp, monkeypatch):
 
 def test_train_cli_writes_a_checkpoint_the_test_cli_reads(in_tmp):
     """Two iterations of the train CLI on the CPU: finite losses, and
-    checkpoint-0001 (the JAX format, plus the port's .states) holds the
+    checkpoint-0001 (the JAX format, plus the port's .torch_states) holds the
     trained model bit for bit; the test CLI loads it and reports the 12-key
     summary."""
     from simpledet_torch.detection_test import test_net
@@ -136,7 +136,8 @@ def test_train_cli_writes_a_checkpoint_the_test_cli_reads(in_tmp):
     assert trainer.step_count == 2
     prefix = "experiments/micro_test/checkpoint"
     assert ckpt.get_latest_ckpt_epoch(prefix) == 1
-    assert os.path.exists(prefix + "-0001.states")
+    assert os.path.exists(prefix + "-0001.torch_states")
+    assert not os.path.exists(prefix + "-0001.states")   # the JAX package's
     trained = trainer.model.state_dict()
     flat = ckpt.flatten(ckpt.read_params(prefix + "-0001.params"))
     assert len(flat) == len(trained)
@@ -194,3 +195,119 @@ def test_test_cli_refuses_mesh_eval(monkeypatch):
     monkeypatch.setenv("SIMPLEDET_EVAL_DEVICES", "8")
     with pytest.raises(NotImplementedError, match="mesh"):
         _refuse_unported(patch_config_as_nothrow(type("TestParam", (), {})))
+
+
+# ------------------------------------------- optimizer state across packages
+
+
+def test_train_cli_resumes_past_the_jax_packages_states(in_tmp):
+    """Beside checkpoint-0001 lies the JAX package's `.states` (a pickle of
+    optax state) and no `.torch_states`: --resume loads the params, ignores
+    that file with a log line, and restarts the optimizer with the schedule
+    fast-forwarded to the epoch's end."""
+    import optax
+
+    from simpledet_torch.detection_train import main
+
+    first = main(["--config", MICRO, "--max-iter", "1", "--device", "cpu"])
+    prefix = "experiments/micro_test/checkpoint"
+    os.remove(prefix + "-0001.torch_states")
+    params = ckpt.read_params(prefix + "-0001.params")
+    j_save(prefix, 1, params, optax.sgd(0.1, momentum=0.9).init(params),
+           step=1)
+    assert os.path.exists(prefix + "-0001.states")
+    trainer = main(["--config", MICRO, "--resume", "--device", "cpu"])
+    assert not trainer.optimizer.state_dict()["state"]
+    # fast-forwarded to epoch 1's end: micro_test's 4 iterations an epoch,
+    # as train_net does without optimizer state
+    assert first.step_count == 1 and trainer.step_count == 4
+    for k, v in trainer.model.state_dict().items():
+        assert torch.equal(v, first.model.state_dict()[k]), k
+    log = (in_tmp / "experiments" / "micro_test" / "log.txt").read_text()
+    assert (f"{prefix}-0001.states is the JAX package's optimizer state, "
+            "not the port's: ignored; the optimizer restarts") in log
+    assert "resumed from epoch 1 (fresh optimizer, schedule at step 4)" in log
+
+
+def test_jax_package_resumes_beside_the_ports_checkpoint(in_tmp):
+    """The JAX package's load_checkpoint in a directory the port wrote: the
+    params load and no optimizer state is found (the port's is
+    `.torch_states`), so train_net restarts its optimizer."""
+    from simpledet_tpu.core.checkpoint import load_checkpoint as j_load
+    from simpledet_torch.detection_train import main
+
+    main(["--config", MICRO, "--max-iter", "1", "--device", "cpu"])
+    prefix = "experiments/micro_test/checkpoint"
+    template = ckpt.read_params(prefix + "-0001.params")
+    params, opt_state, step = j_load(prefix, 1, template)
+    assert opt_state is None and step is None
+    for k, v in ckpt.flatten(params).items():
+        np.testing.assert_array_equal(np.asarray(v),
+                                      ckpt.flatten(template)[k])
+
+
+# ------------------------------------------------ SyncBN eval rules
+
+
+CONVERGE = os.path.join(REPO, "config", "converge_test.py")
+
+
+@pytest.fixture
+def converge_dir(tmp_path, monkeypatch):
+    """config/converge_test.py's data (the port's copy of the micro-set
+    generator, 4 images) and a checkpoint of its seeded test detector with
+    running statistics of its own, written by the port at the epoch the
+    config's TestParam names."""
+    from simpledet_torch.data.synthetic import make_micro_dataset as p_micro
+    from simpledet_torch.models.norm import SyncBN
+
+    root = tmp_path / "data"
+    p_micro(str(root), n_images=4, set_names=("converge_train",))
+    monkeypatch.setenv("CONVERGE_DATA_ROOT", str(root))
+    monkeypatch.setenv("CONVERGE_EPOCHS", "1")
+    monkeypatch.chdir(tmp_path)
+    spec = read_config(CONVERGE)
+    model = build_detector(spec)
+    model.init_weights(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SyncBN):
+                m.mean.normal_(0.0, 0.5, generator=gen)
+                m.var.uniform_(0.5, 2.0, generator=gen)
+    ckpt.save_checkpoint(spec.test.model.prefix, 1, model)
+    return tmp_path
+
+
+def test_test_cli_evaluates_syncbn_on_saved_running_stats(converge_dir):
+    """With `.batch_stats` beside the params: the statistics are loaded,
+    the eval batch stays TestParam's default 4, and the detector runs on
+    them."""
+    from simpledet_torch.detection_test import test_net
+
+    stats = {}
+    summary = test_net(CONVERGE, device="cpu", stats=stats)
+    assert list(summary) == SUMMARY_KEYS
+    assert stats["batch"] == 4 and stats["images"] == 4
+    log = (converge_dir / "experiments" / "converge_test" /
+           "log.txt").read_text()
+    assert "loaded SyncBN running stats" in log
+    assert "forcing eval batch 1" not in log
+
+
+def test_test_cli_without_running_stats_forces_batch_1(converge_dir):
+    """Without `.batch_stats`: a warning, batch statistics, and eval at
+    batch 1 (as test_net does for a legacy SyncBN checkpoint)."""
+    from simpledet_torch.detection_test import test_net
+
+    os.remove("experiments/converge_test/checkpoint-0001.batch_stats")
+    stats = {}
+    summary = test_net(CONVERGE, device="cpu", stats=stats)
+    assert list(summary) == SUMMARY_KEYS
+    assert stats["batch"] == 1 and stats["images"] == 4
+    log = (converge_dir / "experiments" / "converge_test" /
+           "log.txt").read_text()
+    assert ("WARNING: syncbn model without saved running stats; eval uses "
+            "per-batch statistics") in log
+    assert ("syncbn without running stats: forcing eval batch 1 "
+            "(per-batch statistics)") in log

@@ -177,3 +177,62 @@ def test_coco_eval_matches(micro, seed, noise, n_false):
 def test_coco_eval_refuses_segm(micro):
     with pytest.raises(NotImplementedError, match="segm"):
         COCOEval(micro["ann"], iou_type="segm")
+
+
+def _same_dataset(root_a, root_b, set_name):
+    """The roidb records (image paths aside), the annotation json and every
+    image file are the same in two dataset directories."""
+    import json
+    import os
+
+    with open(os.path.join(root_a, "cache", set_name + ".roidb"), "rb") as f:
+        a = pickle.load(f)
+    with open(os.path.join(root_b, "cache", set_name + ".roidb"), "rb") as f:
+        b = pickle.load(f)
+    assert len(a) == len(b) > 0
+    for ra, rb in zip(a, b):
+        assert os.path.basename(ra.pop("image_url")) == \
+            os.path.basename(rb.pop("image_url"))
+        assert ra == rb
+    for name in ("annotations.json",):
+        with open(os.path.join(root_a, name)) as fa, \
+                open(os.path.join(root_b, name)) as fb:
+            assert json.load(fa) == json.load(fb)
+    files = sorted(os.listdir(os.path.join(root_a, "images")))
+    assert files == sorted(os.listdir(os.path.join(root_b, "images")))
+    for fn in files:
+        with open(os.path.join(root_a, "images", fn), "rb") as fa, \
+                open(os.path.join(root_b, "images", fn), "rb") as fb:
+            assert fa.read() == fb.read(), fn
+
+
+@pytest.mark.parametrize("shapes", ["rect", "ellipse"])
+def test_micro_generator_copy_matches_the_fixture(tmp_path, shapes):
+    """data/synthetic.make_micro_dataset against
+    tests/fixtures.make_micro_dataset: the same seed gives the same JPEG
+    bytes, annotations and roidb records."""
+    from simpledet_torch.data.synthetic import make_micro_dataset as p_micro
+
+    make_micro_dataset(str(tmp_path / "a"), n_images=6, seed=3,
+                       set_names=("converge_train",), shapes=shapes)
+    p_micro(str(tmp_path / "b"), n_images=6, seed=3,
+            set_names=("converge_train",), shapes=shapes)
+    _same_dataset(tmp_path / "a", tmp_path / "b", "converge_train")
+
+
+def test_synth_coco_copy_matches_the_tool(tmp_path):
+    """data/synthetic.make_synth_coco against
+    tools/train_flagship_curve.make_synth_coco (2 images of 800 x 1200)."""
+    import importlib.util
+    import os
+
+    from simpledet_torch.data.synthetic import make_synth_coco
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "train_flagship_curve.py")
+    spec = importlib.util.spec_from_file_location("_curve_tool", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tool.make_synth_coco(str(tmp_path / "a"), n_images=2, seed=1)
+    make_synth_coco(str(tmp_path / "b"), n_images=2, seed=1)
+    _same_dataset(tmp_path / "a", tmp_path / "b", "flagship_synth")

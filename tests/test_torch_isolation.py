@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "simpledet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "simpledet_tpu",
+             "tests", "tools", "fixtures")
 
 
 def test_reading_and_building_imports_no_jax():
@@ -28,6 +29,11 @@ def test_reading_and_building_imports_no_jax():
         "bf16, _ = detector_from_config('config/faster_r50v1_fpn_bf16_1x.py',"
         " device='cpu')\n"
         "assert bf16.backbone.dtype is __import__('torch').bfloat16\n"
+        "import simpledet_torch.parallel.dist, simpledet_torch.core.metrics\n"
+        "import simpledet_torch.data.synthetic\n"
+        "tiny, _ = detector_from_config('config/converge_test.py',"
+        " device='cpu', is_train=True)\n"
+        "assert len(tiny.backbone.units[0]) == 2\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(sum(p.numel() for p in model.parameters()))\n")

@@ -340,3 +340,24 @@ def test_flagship_forward_on_cpu():
     (one,) = det(images, im_info)
     assert torch.equal(one["classes"], classes[0][valid[0]])
     assert one["boxes"].shape == (int(valid[0].sum()), 4)
+
+
+def test_detector_reads_min_det_score_0_as_the_jax_package(tmp_path):
+    """A config whose TestParam.min_det_score is 0 (as the RetinaNet and
+    RepPoints configs set it): the JAX package's CLIs read
+    `min_det_score or 0.05`, and so does the port's Detector."""
+    from simpledet_torch.infer import Detector
+
+    cfg = tmp_path / "score0.py"
+    cfg.write_text(
+        "import importlib.util\n"
+        f"_s = importlib.util.spec_from_file_location('_flag', {FLAGSHIP!r})\n"
+        "_m = importlib.util.module_from_spec(_s)\n"
+        "_s.loader.exec_module(_m)\n\n\n"
+        "def get_config(is_train):\n"
+        "    out = _m.get_config(is_train)\n"
+        "    out[8].min_det_score = 0\n"
+        "    return out\n")
+    det = Detector(str(cfg), device="cpu")
+    assert det.spec.test.min_det_score == 0
+    assert det.score_thr == 0.05

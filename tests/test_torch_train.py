@@ -561,3 +561,35 @@ def test_lr_mode_schedules_match(mode):
         assert abs(got(step) - w) <= 1e-6 * 0.02, step
     assert got(0) == pytest.approx(0.02 / 3) and got(40) == 0.02
     assert got(300) == pytest.approx(0.0, abs=1e-12)
+
+
+@pytest.mark.parametrize("fixed,excluded", [
+    (("conv0", "stage1", "scale", "bias"), ("stage1_unit2",)),
+    (("backbone",), ("bn", "conv0")),
+    (("stage",), ()),
+])
+def test_freeze_mask_takes_excluded_param_as_jax(fixed, excluded):
+    """ModelParam.pretrain.excluded_param unfreezes what fixed_param froze,
+    on all 189 leaves of the flagship, as the JAX freeze_mask does; the
+    train config's spec carries it to the Trainer."""
+    from simpledet_tpu.core.config import load_config as j_load_config
+    from simpledet_torch.dsl import build_detector
+
+    spec = read_config(FLAGSHIP, is_train=True)
+    model = build_detector(spec)
+    jmodel = j_load_config(FLAGSHIP).get_config(is_train=True)[6]
+    shapes = jax.eval_shape(lambda: jmodel.train_symbol.init(
+        {"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 128, 160, 3)), jnp.asarray([[128, 160, 1.0]]),
+        mode="test"))["params"]
+    want = dict(_flat(j_freeze_mask(shapes, fixed, excluded)))
+    got = {flax_path(k): v for k, v in freeze_mask(model, fixed,
+                                                   excluded).items()}
+    assert got == want
+    spec.excluded_param = excluded
+    spec.fixed_param = fixed
+    trainer = Trainer.from_spec(model, spec, 10)
+    assert {flax_path(k): v for k, v in trainer.trainable.items()} == want
+    if excluded:
+        assert got != {flax_path(k): v for k, v in freeze_mask(
+            model, fixed).items()}
