@@ -69,10 +69,33 @@ Phases, each fatal on error:
      their plain versions at its shapes on the trained model's pyramid, then
      the test CLI on the train set: the loss, AP and AP50 gates of the JAX
      package's tests/test_convergence.py, AP beside the JAX record;
-  10. print the `kernels` JSON line (launches per path: serving, training,
-     serving_bf16, training_bf16, train_cli, eval_cli, training_syncbn,
-     train_cli_syncbn, eval_cli_syncbn, converge, converge_eval; times at
-     converge_test's shapes), the card's line, and {"ok": true, ...}.
+  D. serve config/cascade_r50v1_fpn_1x.py (Cascade R-CNN, R50v1-FPN, 81
+     classes, fp32 without TF32) as phase 4 does: 3 RoIAlign launches a
+     request; then each kernel call of one request (the three stages'
+     RoIAlign, the proposals' and the per-class NMS) held against its plain
+     version on that request's own inputs;
+  E. train it as phase 5 does (3 RoIAlign forwards and backwards a step;
+     stage 1's cross-entropy checked as the flagship's box loss), with the
+     device's idle share of 3 traced steps; one more step recorded;
+  F. K1 with codes and K2 on each stage's rois of that recorded step,
+     against their plain versions; K2's time per stage and how many rois
+     meet its busiest 4 x 4-cell tile, beside phase 3b's mixed and
+     identical roi sets;
+  G. phase D on config/cascade_r101v1_fpn_1x.py (R101v1-FPN);
+  then, beside phases A-C:
+  H. config/converge_cascade.py (depth-18 FPN, SyncBN, 3 stages) from
+     scratch at batch 8 for 480 steps through the train CLI, the three
+     kernels at its shapes, phase F's readings on one more step of the
+     trained model (whose rois cluster on the gt boxes), the test CLI: the
+     gates of the JAX package's tests/test_converge_cascade.py, AP beside
+     the JAX record;
+  10. print each phase's wall time as it ends, the `kernels` JSON line
+     (launches per path: serving, training, serving_bf16, training_bf16,
+     train_cli, eval_cli, serving_cascade, training_cascade,
+     serving_cascade_r101, training_syncbn, train_cli_syncbn,
+     eval_cli_syncbn, converge, converge_eval, converge_cascade,
+     converge_cascade_eval; times at converge_test's shapes and on the
+     cascade's inputs), the card's line, and {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -110,6 +133,20 @@ BWD_OPS_PER_OUT, BWD_OPS_PER_TIED_SAMPLE = 1, 8
 
 def log(*a):
     print(*a, flush=True)
+
+
+class phase:
+    """Context: logs a phase's wall time when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s"
+            + (" (failed)" if exc[0] else ""))
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -607,7 +644,15 @@ def read_counts(path, required):
     return counts
 
 
+def stage_count(model):
+    """RoIAlign launches a request or step: one a box-head stage (3 for a
+    Cascade R-CNN)."""
+    return len(getattr(model, "heads", (model,)))
+
+
 def serve(dev, smi, config=CONFIG, path="serving"):
+    """Requests through the config's Detector (phase 4's checks). Returns
+    (launch counts, ms per image, the Detector)."""
     from simpledet_torch.infer import Detector, precision, synthetic_batch
     from simpledet_torch.kernels import nms as knms
     from simpledet_torch.kernels import roi_align as kroi
@@ -629,6 +674,11 @@ def serve(dev, smi, config=CONFIG, path="serving"):
     counts = read_counts(path, ("nms", "roi_align_fwd"))
     if counts["roi_align_bwd"]:
         raise AssertionError(f"{path} launched the RoIAlign backward")
+    per_request = stage_count(det.model)
+    if counts["roi_align_fwd"] != per_request * len(requests):
+        raise AssertionError(f"{path}: {counts['roi_align_fwd']} RoIAlign "
+                             f"launches for {len(requests)} requests, want "
+                             f"{per_request} a request")
     check_feature_dtype(det.model, requests[1][0], requests[1][1],
                         det.spec.pixel_norm)
 
@@ -661,7 +711,7 @@ def serve(dev, smi, config=CONFIG, path="serving"):
         torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-3)
     log(f"{path}: detections agree with the plain-version path")
-    return counts, ms_img
+    return counts, ms_img, det
 
 
 def check_feature_dtype(model, images, im_info, pixel_norm):
@@ -683,8 +733,7 @@ def check_feature_dtype(model, images, im_info, pixel_norm):
 # ---------------------------------------------------------------- phase 5
 
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
-LOSSES = ("bbox_cls_loss", "bbox_reg_loss", "rpn_cls_loss", "rpn_reg_loss",
-          "total_loss")
+PROFILED_STEPS = 3
 
 
 def plain_kernels():
@@ -708,6 +757,38 @@ def plain_kernels():
         finally:
             onms.nms_keep_sorted, frcnn.multilevel_roi_align = saved
     return swapped()
+
+
+def recording():
+    """Context: every call the model makes to the RoIAlign and NMS wrappers,
+    passed on to them and recorded in {"roi_align": [(feats, rois, kw)],
+    "nms": [(sorted boxes, sorted valid, thr)]} (features detached)."""
+    import contextlib
+
+    import simpledet_torch.models.faster_rcnn as frcnn
+    import simpledet_torch.ops.nms as onms
+
+    calls = {"roi_align": [], "nms": []}
+
+    @contextlib.contextmanager
+    def recorded():
+        saved = (onms.nms_keep_sorted, frcnn.multilevel_roi_align)
+
+        def nms(boxes, valid, thr):
+            calls["nms"].append((boxes, valid, thr))
+            return saved[0](boxes, valid, thr)
+
+        def roi_align(feats, rois, strides, **kw):
+            calls["roi_align"].append(([f.detach() for f in feats], rois,
+                                       dict(strides=strides, **kw)))
+            return saved[1](feats, rois, strides, **kw)
+
+        onms.nms_keep_sorted, frcnn.multilevel_roi_align = nms, roi_align
+        try:
+            yield calls
+        finally:
+            onms.nms_keep_sorted, frcnn.multilevel_roi_align = saved
+    return recorded()
 
 
 def term_scales(model):
@@ -791,12 +872,17 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 
 
 def train(dev, smi, config=CONFIG, path="training", trainer=None,
-          batch=None):
+          batch=None, profile=False, record=False):
     """The config's seeded train detector on a synthetic batch, its
     FrozenBN folded; or, given them, `trainer` on `batch` (images, im_info,
-    gt)."""
+    gt). A step launches the RoIAlign forward and backward once a stage
+    (`stage_count`). Returns (launch counts, ms per step, its forward /
+    backward / optimizer split, extra): extra holds, with `profile`, the
+    device's busy and idle share of traced steps, and with `record`, the
+    kernels' calls of one more step (`recording`)."""
     import copy
 
+    from simpledet_torch.breakdown import device_profile
     from simpledet_torch.core.train import Trainer
     from simpledet_torch.infer import precision
     from simpledet_torch.models.norm import batch_stat_names
@@ -815,7 +901,7 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
     start = {k: v.clone() for k, v in model.state_dict().items()}
 
     def check(i, losses):
-        vals = {k: float(losses[k]) for k in LOSSES}
+        vals = {k: float(v) for k, v in losses.items()}
         log(f"{path} step {i}: " + ", ".join(f"{k} {v:.5f}"
                                             for k, v in vals.items()))
         if not all(np.isfinite(v) for v in vals.values()):
@@ -824,21 +910,26 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
 
     # the box head's loss against the definition of its cross-entropy (the
     # mean over the b * r rois of logsumexp(logits) - logit[label]), in
-    # float64 on the logits and labels of one train forward without grad
+    # float64 on the logits and labels of one train forward without grad;
+    # a cascade's first stage: its loss_weight times that
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         data, info = trainer._inputs(images, im_info)
         losses, aux = model(data, info, torch.as_tensor(gt).to(dev),
                             mode="train", generator=gen)
+    cls_key, weight = "bbox_cls_loss", 1.0
+    if cls_key not in losses:
+        cls_key, weight = "bbox_cls_loss_1st", model.p_bboxes[0].loss_weight
     z = aux["bbox_cls_logit"].double()
     label = aux["bbox_label"].long()[..., None]
-    want = float((torch.logsumexp(z, -1) - z.gather(-1, label)[..., 0]).mean())
-    got = float(losses["bbox_cls_loss"])
+    want = weight * float((torch.logsumexp(z, -1)
+                           - z.gather(-1, label)[..., 0]).mean())
+    got = float(losses[cls_key])
     if abs(got - want) > 1e-5 * want:
-        raise AssertionError(f"bbox_cls_loss {got} is not the mean "
+        raise AssertionError(f"{cls_key} {got} is not {weight} x the mean "
                              f"cross-entropy of its logits, {want}")
-    log(f"bbox_cls_loss {got:.6f} equals the rois' mean cross-entropy "
-        f"{want:.6f} within 1e-5")
+    log(f"{cls_key} {got:.6f} equals {weight} x the rois' mean "
+        f"cross-entropy {want:.6f} within 1e-5")
 
     # seeded heads give near-uniform softmaxes: CE about log(classes) plus
     # half the logits' variance over the classes (1.3 on the SyncBN path,
@@ -846,7 +937,7 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
     half_var = float(z.var(-1).mean()) / 2
     first = check(0, trainer.step(images, im_info, gt))
     # gross checks only: a wrong normalisation is off by orders of magnitude
-    for k, want, tol in (("bbox_cls_loss", np.log(81) + half_var, 1.0),
+    for k, want, tol in ((cls_key, weight * (np.log(81) + half_var), 1.0),
                          ("rpn_cls_loss", np.log(2), 0.2)):
         if abs(first[k] - want) > tol:
             raise AssertionError(f"step 0 {k} {first[k]:.4f} is not near "
@@ -868,12 +959,34 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
         timer.collect()
         check(i, losses)
     counts = read_counts(path, ("nms", "roi_align_fwd", "roi_align_bwd"))
+    per_step = stage_count(model)
+    for name in ("roi_align_fwd", "roi_align_bwd"):
+        if counts[name] != per_step * TRAIN_TIMED:
+            raise AssertionError(f"{path}: {counts[name]} {name} launches in "
+                                 f"{TRAIN_TIMED} steps, want {per_step} a "
+                                 "step")
     trainer.timer = None
     ms_step = 1e3 * sum(step_s) / len(step_s)
     split = {k: v / TRAIN_TIMED for k, v in timer.totals.items()}
     log(f"{path}: {ms_step:.3f} ms/step ({B * 1e3 / ms_step:.2f} img/s) at "
         f"{H}x{W}, batch {B}, {how}, on {smi}; per step "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    extra = {}
+    if profile:
+        traced_ms, busy_ms, top = device_profile(
+            lambda: trainer.step(images, im_info, gt), PROFILED_STEPS)
+        extra.update(traced_step_ms=traced_ms, device_busy_ms=busy_ms,
+                     device_idle_share=max(0.0, 1.0 - busy_ms / traced_ms),
+                     top_kernels_ms=top)
+        log(f"{path}: {PROFILED_STEPS} traced steps (torch.profiler): "
+            f"{traced_ms:.3f} ms a step, device busy {busy_ms:.3f} ms, idle "
+            f"{extra['device_idle_share']:.1%}; top kernels "
+            + json.dumps({k: round(v, 3) for k, v in list(top.items())[:6]}))
+    if record:
+        with recording() as calls:
+            trainer.step(images, im_info, gt)
+        torch.cuda.synchronize()
+        extra["calls"] = calls
 
     after = model.state_dict()
     for name, trainable in trainer.trainable.items():
@@ -915,7 +1028,7 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
         p2_losses, p2_grads = one_step()      # the step's own nondeterminism
     if any(read_counts("plain step", ()).values()):
         raise AssertionError("the plain step launched a kernel")
-    for k in LOSSES:
+    for k in k_losses:
         a, b = float(k_losses[k]), float(p_losses[k])
         if abs(a - b) > 1e-5 * abs(b):
             raise AssertionError(f"{k}: kernels {a} vs plain {b}")
@@ -947,7 +1060,7 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
                      f"{by_max[0]})" if terms else "")
         + f" (tolerance {tol}; worst {worst[0]}); two plain steps "
         f"differ by {noise[1]:.3g} ({noise[0]})")
-    return counts, ms_step, split
+    return counts, ms_step, split, extra
 
 
 # ------------------------------------------------------------ phases 8, 9
@@ -1128,13 +1241,262 @@ def cli_phases(dev, smi):
     return train_counts, eval_counts, stats
 
 
+# ------------------------------------------------- phases D, E, F and G
+
+CONFIG_CASCADE = os.path.join(REPO, "config", "cascade_r50v1_fpn_1x.py")
+CONFIG_CASCADE_R101 = os.path.join(REPO, "config",
+                                   "cascade_r101v1_fpn_1x.py")
+CASCADE_STAGES = ("1st", "2nd", "3rd")
+K_TILE = 4          # roi_align.cu's kTile: the backward sums 4 x 4-cell tiles
+
+
+def nms_bound(boxes, valid):
+    """(bound ms, what bounds it) of one NMS call over sorted boxes
+    [P, n, 4] with their valid flags."""
+    nv = valid.sum(1).double()
+    ops = float((NMS_OPS_PER_PAIR * nv * (nv - 1) / 2
+                 + NMS_OPS_PER_BOX * nv).sum())
+    return bound_ms(boxes.shape[0] * boxes.shape[1] * (16 + 1 + 1), ops)
+
+
+def check_serving_calls(calls, path):
+    """The kernels on a serving request's own inputs (recorded by
+    `recording`): each RoIAlign forward (one a stage) bit for bit against
+    the plain version, each NMS call's keep flags against the plain
+    version's. Times the stage-3 forward and the per-class NMS (the largest
+    NMS call) beside their bounds and plain versions."""
+    from simpledet_torch.kernels import nms as knms
+    from simpledet_torch.kernels import roi_align as kroi
+
+    out = {}
+    for i, (feats, rois, kw) in enumerate(calls["roi_align"]):
+        got = kroi.roi_align_fwd_cuda(feats, rois, **kw)
+        torch.cuda.synchronize()
+        want = kroi.multilevel_roi_align_plain(feats, rois, **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{path}: RoIAlign forward of stage {i + 1}"
+                                 " differs from the plain version")
+    feats, rois, kw = calls["roi_align"][-1]
+    isz = feats[0].element_size()
+    nbytes = (touched_bytes(kroi, rois, isz) + rois.numel() * 4
+              + got.numel() * isz)
+    bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * got.numel())
+    out["roi_align_fwd"] = dict(
+        ms=cuda_ms(lambda: kroi.roi_align_fwd_cuda(feats, rois, **kw), 20),
+        plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_plain(
+            feats, rois, **kw), 3, 1),
+        bound_ms=bms, bound_by=by, max_abs_err=0.0,
+        shape=list(rois.shape))
+    for boxes, valid, thr in calls["nms"]:
+        got = knms.nms_keep_sorted(boxes, valid, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, knms.nms_keep_sorted_plain(boxes, valid,
+                                                           thr)):
+            raise AssertionError(f"{path}: NMS {tuple(boxes.shape[:2])}@"
+                                 f"{thr}: keep flags differ")
+    boxes, valid, thr = max(calls["nms"], key=lambda c: c[0].shape[0])
+    bms, by = nms_bound(boxes, valid)
+    out["nms"] = dict(
+        ms=cuda_ms(lambda: knms.nms_keep_sorted(boxes, valid, thr), 20),
+        plain_ms=cuda_ms(lambda: knms.nms_keep_sorted_plain(
+            boxes, valid, thr), 3, 1),
+        bound_ms=bms, bound_by=by, max_abs_err=0.0,
+        shape=list(boxes.shape[:2]))
+    for name, v in out.items():
+        log(f"{path}: {name} on the request's own inputs {v['shape']}: "
+            f"identical to the plain version ({len(calls['roi_align'])} "
+            f"RoIAlign and {len(calls['nms'])} NMS calls); kernel "
+            f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+            f"{v['bound_ms']:.6f} ms ({v['bound_by']})")
+    return out
+
+
+def serve_cascade(dev, smi, config, path):
+    """Phases D and G: phase 4 on a Cascade R-CNN config (3 RoIAlign
+    launches a request), then the kernels on one request's own inputs."""
+    from simpledet_torch.infer import synthetic_batch
+
+    counts, ms_img, det = serve(dev, smi, config, path)
+    images, im_info = synthetic_batch(B, H, W, 1)
+    with recording() as calls:
+        det.detect(images.to(dev), im_info)
+    torch.cuda.synchronize()
+    if len(calls["roi_align"]) != 3:
+        raise AssertionError(f"{path}: {len(calls['roi_align'])} RoIAlign "
+                             "calls a request")
+    return counts, ms_img, check_serving_calls(calls, path)
+
+
+def tile_load(kroi, rois, level_hw, strides=STRIDES):
+    """How many of these rois [B, R, 4] meet each of the backward's
+    kTile x kTile-cell tiles: a roi meets a tile of its level and image when
+    the tap window of its non-empty bins overlaps it, as roi_taps_kernel
+    decides. Returns (the busiest tile's count, the mean count over the
+    tiles met, the number of tiles met)."""
+    b, r = rois.shape[:2]
+    rois_f = rois.reshape(-1, 4)
+    lvl = kroi.roi_level_index(rois_f, level_hw, strides, 224, 4, 7)
+    (yl, yh, _), (xl, xh, _), empty = kroi._sample_taps(rois_f, lvl,
+                                                        level_hw, strides, 7)
+    rows_on, cols_on = ~empty.all(2), ~empty.all(1)
+
+    def window(lo, hi, on):
+        on = on[:, :, None].expand_as(lo)
+        return (torch.where(on, lo, torch.full_like(lo, 1 << 30)).amin((1, 2)),
+                torch.where(on, hi, torch.full_like(hi, -1)).amax((1, 2)))
+
+    (y0, y1), (x0, x1) = window(yl, yh, rows_on), window(xl, xh, cols_on)
+    has = rows_on.any(1) & cols_on.any(1)
+    img = torch.arange(b, device=rois.device).repeat_interleave(r)
+    counts = []
+    for lv, (h, w) in enumerate(level_hw):
+        th, tw = -(-h // K_TILE), -(-w // K_TILE)
+        sel = has & (lvl == lv)
+        i = img[sel]
+        ty0, ty1 = y0[sel] // K_TILE, y1[sel] // K_TILE + 1
+        tx0, tx1 = x0[sel] // K_TILE, x1[sel] // K_TILE + 1
+        diff = torch.zeros(b, th + 1, tw + 1, dtype=torch.int64,
+                           device=rois.device)
+        one = torch.ones_like(i)
+        for ty, tx, v in ((ty0, tx0, one), (ty0, tx1, -one),
+                          (ty1, tx0, -one), (ty1, tx1, one)):
+            diff.index_put_((i, ty, tx), v, accumulate=True)
+        counts.append(diff.cumsum(1).cumsum(2)[:, :th, :tw].reshape(-1))
+    c = torch.cat(counts)
+    met = c[c > 0]
+    return int(c.max()), float(met.double().mean()), int(met.numel())
+
+
+def stage_readings(dev, calls, path):
+    """K1 with tie codes and K2 on each stage's features and rois of one
+    recorded training step of a cascade (`recording`): K1 bit for bit
+    against the plain version, K2 against the plain backward (1e-5 of each
+    level's max |grad|) on a random output gradient; K2's time per stage
+    and how many rois meet its busiest tiles. Returns ({stage: reading},
+    the last stage's (feats, rois, kw, codes, grad))."""
+    from simpledet_torch.kernels import roi_align as kroi
+
+    rng = np.random.RandomState(7)
+    by_stage = {}
+    for s, (feats, rois, kw) in zip(CASCADE_STAGES, calls["roi_align"]):
+        level_hw = [tuple(f.shape[1:3]) for f in feats]
+        out, codes = kroi.roi_align_fwd_cuda(feats, rois, **kw,
+                                             with_codes=True)
+        torch.cuda.synchronize()
+        want, want_codes = kroi.multilevel_roi_align_plain(
+            feats, rois, **kw, with_codes=True)
+        if not (torch.equal(codes, want_codes) and torch.equal(out, want)):
+            raise AssertionError(f"{path} stage {s}: RoIAlign forward with "
+                                 "codes differs from the plain version")
+        g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(
+            dev, out.dtype)
+        got = kroi.roi_align_bwd_cuda(g, codes, rois, level_hw,
+                                      dtype=out.dtype, **kw)
+        torch.cuda.synchronize()
+        ref = kroi.multilevel_roi_align_bwd_plain(g, codes, rois, level_hw,
+                                                  dtype=out.dtype, **kw)
+        err = 0.0
+        for gl, wl in zip(got, ref):
+            scale = float(wl.abs().max())
+            torch.testing.assert_close(gl, wl, rtol=0, atol=1e-5 * scale)
+            err = max(err, float((gl - wl).abs().max()))
+        ms = cuda_ms(lambda: kroi.roi_align_bwd_cuda(
+            g, codes, rois, level_hw, dtype=out.dtype, **kw), 20)
+        busiest, mean, met = tile_load(kroi, rois, level_hw, kw["strides"])
+        by_stage[s] = dict(ms=ms, busiest_tile_rois=busiest,
+                           mean_tile_rois=mean, tiles_met=met,
+                           max_abs_err=err)
+        log(f"{path} stage {s} (B={rois.shape[0]}, R={rois.shape[1]}, "
+            f"levels {level_hw}): K1 with codes identical to the plain "
+            f"version; K2 {ms:.4f} ms (max_abs_err {err:.3g}); rois a "
+            f"{K_TILE}x{K_TILE}-cell tile: busiest {busiest}, mean "
+            f"{mean:.2f} over {met} tiles met")
+    return by_stage, (feats, rois, kw, codes, g)
+
+
+def cascade_roi_kernels(dev, calls, bwd_sets):
+    """Phase F: `stage_readings` on the full-width cascade's recorded
+    training step, beside time_bwd_sets' mixed and identical rois of the
+    same call; K1 with codes and K2 on the stage-3 rois beside their bounds
+    and plain versions. Returns ({stage: K2's reading}, K1 at stage 3, K2
+    at stage 3)."""
+    from simpledet_torch.kernels import roi_align as kroi
+
+    feats = calls["roi_align"][0][0]
+    if [tuple(f.shape[1:3]) for f in feats] != LEVEL_HW or \
+            feats[0].dtype != torch.float32:
+        raise AssertionError("phase F runs on the fp32 full-width levels")
+    by_stage, (feats, rois, kw, codes, g) = stage_readings(
+        dev, calls, "training_cascade")
+    mixed, alike = (bwd_sets[k] for k in ("mixed float32",
+                                          "identical float32"))
+    mb = tile_load(kroi, mixed_rois(np.random.RandomState(5), dev, R_TRAIN),
+                   LEVEL_HW)
+    log(f"K2 by stage (fp32, B={B}, R={R_TRAIN}): "
+        + ", ".join(f"{s} {v['ms']:.4f} ms" for s, v in by_stage.items())
+        + f"; time_bwd_sets in this call: mixed rois {mixed:.4f} ms (busiest"
+        f" tile {mb[0]} rois, mean {mb[1]:.2f}), 512 identical rois "
+        f"{alike:.4f} ms (every roi meets the same tiles)")
+
+    isz = feats[0].element_size()
+    n_out = codes.numel()
+    nbytes = (touched_bytes(kroi, rois, isz) + rois.numel() * 4
+              + n_out * isz + n_out)
+    bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * n_out)
+    k1 = dict(ms=cuda_ms(lambda: kroi.roi_align_fwd_cuda(
+        feats, rois, **kw, with_codes=True), 20),
+        plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_plain(
+            feats, rois, **kw, with_codes=True), 3, 1),
+        bound_ms=bms, bound_by=by, max_abs_err=0.0)
+    maps = sum(B * h * w * C for h, w in LEVEL_HW) * isz
+    popcount = sum((codes.int() >> st) & 1 for st in range(4))
+    bms, by = bound_ms(g.numel() * isz + codes.numel() + rois.numel() * 4
+                       + maps, BWD_OPS_PER_OUT * n_out
+                       + BWD_OPS_PER_TIED_SAMPLE * float(popcount.sum()))
+    k2 = dict(ms=by_stage["3rd"]["ms"],
+              plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_bwd_plain(
+                  g, codes, rois, LEVEL_HW, dtype=torch.float32, **kw), 3, 1),
+              bound_ms=bms, bound_by=by,
+              max_abs_err=by_stage["3rd"]["max_abs_err"])
+    log(f"stage-3 rois: K1 with codes {k1['ms']:.4f} ms (plain "
+        f"{k1['plain_ms']:.4f}, bound {k1['bound_ms']:.6f}, {k1['bound_by']});"
+        f" K2 {k2['ms']:.4f} ms (plain {k2['plain_ms']:.4f}, bound "
+        f"{k2['bound_ms']:.6f}, {k2['bound_by']})")
+    return by_stage, k1, k2
+
+
+def cascade_phases(dev, smi, bwd_sets):
+    """Phases D to G: serve and train config/cascade_r50v1_fpn_1x.py at full
+    width (fp32, TF32 off), K2 per stage on the training step's rois, serve
+    config/cascade_r101v1_fpn_1x.py."""
+    out = {}
+    with phase("D serving_cascade"):
+        out["serving"] = serve_cascade(dev, smi, CONFIG_CASCADE,
+                                       "serving_cascade")
+    with phase("E training_cascade"):
+        out["training"] = train(dev, smi, CONFIG_CASCADE, "training_cascade",
+                                profile=True, record=True)
+    with phase("F K2 by stage"):
+        out["by_stage"] = cascade_roi_kernels(
+            dev, out["training"][3].pop("calls"), bwd_sets)
+    with phase("G serving_cascade_r101"):
+        out["serving_r101"] = serve_cascade(dev, smi, CONFIG_CASCADE_R101,
+                                            "serving_cascade_r101")
+    return out
+
+
 # ---------------------------------------------------- phases A, B and C
 
 CONFIG_SYNC = "config/flagship_synth_curve.py"
 CONFIG_CONVERGE = "config/converge_test.py"
+CONFIG_CONVERGE_CASCADE = "config/converge_cascade.py"
 N_SYNTH_IMAGES = 4          # 800 x 1200 and 1200 x 800 in turn
 CONVERGE_EPOCHS = 100       # 16 images and their flips at batch 8: 4 an epoch
-JAX_CONVERGE = dict(AP=0.937, AP50=1.000, AP75=1.000)   # one TPU v5e chip
+CONVERGE_CASCADE_EPOCHS = 120                   # 480 steps, the JAX record's
+# the JAX package's records (the cascade's: experiments/converge_curve.md:65)
+JAX_CONVERGE = dict(AP=0.937, AP50=1.000, AP75=1.000, chip="one TPU v5e chip")
+JAX_CONVERGE_CASCADE = dict(AP=1.000, AP50=1.000, AP75=1.000, first20=1.94,
+                            last20=0.10, chip="one TPU chip")
 SUMMARY_KEYS = ["AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
                 "AR100", "ARs", "ARm", "ARl"]
 
@@ -1147,7 +1509,7 @@ def in_workdir(root):
                                                 make_synth_coco)
 
     os.makedirs(os.path.join(root, "config"))
-    for cfg in (CONFIG_SYNC, CONFIG_CONVERGE):
+    for cfg in (CONFIG_SYNC, CONFIG_CONVERGE, CONFIG_CONVERGE_CASCADE):
         shutil.copyfile(os.path.join(REPO, cfg), os.path.join(root, cfg))
     make_synth_coco(os.path.join(root, "synth"), n_images=N_SYNTH_IMAGES)
     make_micro_dataset(os.path.join(root, "converge"), n_images=16,
@@ -1156,10 +1518,13 @@ def in_workdir(root):
                       FLAGSHIP_CURVE_EPOCHS="1",
                       CONVERGE_DATA_ROOT=os.path.join(root, "converge"),
                       CONVERGE_BATCH="8",
-                      CONVERGE_EPOCHS=str(CONVERGE_EPOCHS))
+                      CONVERGE_EPOCHS=str(CONVERGE_EPOCHS),
+                      CONVERGE_CASCADE_BATCH="8",
+                      CONVERGE_CASCADE_EPOCHS=str(CONVERGE_CASCADE_EPOCHS))
     os.chdir(root)
     log(f"synthetic data: {N_SYNTH_IMAGES} COCO-shaped images for "
-        f"{CONFIG_SYNC}, 16 micro images for {CONFIG_CONVERGE}")
+        f"{CONFIG_SYNC}, 16 micro images for {CONFIG_CONVERGE} and "
+        f"{CONFIG_CONVERGE_CASCADE}")
 
 
 def train_syncbn(dev, smi):
@@ -1400,12 +1765,17 @@ def converge_kernels(dev, trainer, batch):
     return out
 
 
-def converge(dev, smi):
+def converge(dev, smi, config=CONFIG_CONVERGE, path="converge",
+             epochs=CONVERGE_EPOCHS, record=JAX_CONVERGE):
     """Phase C: config/converge_test.py from scratch at batch 8 for
     CONVERGE_EPOCHS epochs (400 steps) through the train CLI's train_net,
     then its test CLI on the train set; the gates of the JAX package's
     tests/test_convergence.py (last 20 steps' mean loss under half the
-    first 20's, AP >= 0.6, AP50 >= 0.95), AP beside the JAX record."""
+    first 20's, AP >= 0.6, AP50 >= 0.95), AP beside the JAX record. Phase
+    H: the same on config/converge_cascade.py for CONVERGE_CASCADE_EPOCHS
+    epochs (480 steps), the gates of tests/test_converge_cascade.py (the
+    same three), and `stage_readings` on one more step of the trained
+    cascade, whose stages sample rois that cluster on the gt boxes."""
     from simpledet_torch import detection_test, detection_train
     from simpledet_torch.core.config import read_config
     from simpledet_torch.data.loader import Loader
@@ -1415,45 +1785,55 @@ def converge(dev, smi):
     history = []
     zero_counts()
     t0 = time.perf_counter()
-    trainer = detection_train.train_net(CONFIG_CONVERGE, device=dev,
+    trainer = detection_train.train_net(config, device=dev,
                                         loss_history=history)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    train_counts = read_counts("converge", ("nms", "roi_align_fwd",
-                                            "roi_align_bwd"))
+    train_counts = read_counts(path, ("nms", "roi_align_fwd",
+                                      "roi_align_bwd"))
     total = np.array([h["total_loss"] for h in history])
     first, last = float(total[:20].mean()), float(total[-20:].mean())
-    log(f"converge: {len(total)} steps at batch 8 in {seconds:.1f} s "
+    log(f"{path}: {len(total)} steps at batch 8 in {seconds:.1f} s "
         f"(incl. start-up, loader and logging) on {smi}; mean total loss "
-        f"first 20 {first:.4f}, last 20 {last:.4f}")
-    if len(total) != 4 * CONVERGE_EPOCHS or not np.isfinite(total).all():
-        raise AssertionError(f"converge: {len(total)} steps, finite "
+        f"first 20 {first:.4f}, last 20 {last:.4f}"
+        + (f" (the JAX record: {record['first20']:.2f}, "
+           f"{record['last20']:.2f})" if "first20" in record else ""))
+    if len(total) != 4 * epochs or not np.isfinite(total).all():
+        raise AssertionError(f"{path}: {len(total)} steps, finite "
                              f"{bool(np.isfinite(total).all())}")
 
-    spec = read_config(CONFIG_CONVERGE, is_train=True)
+    spec = read_config(config, is_train=True)
     roidb = load_roidb(spec.dataset.image_set, spec.dataset.cache_dir)
     batch = next(iter(Loader(roidb, from_config(spec.transform), 8,
                              shuffle=False, num_workers=0)))
     kernels = converge_kernels(dev, trainer, batch)
+    cascade = stage_count(trainer.model) > 1
+    if cascade:
+        # the checkpoint on disk is what the test CLI evaluates
+        with recording() as calls:
+            trainer.step(batch["data"], batch["im_info"], batch["gt_bbox"])
+        torch.cuda.synchronize()
+        kernels["roi_align_bwd"]["trained_by_stage"] = stage_readings(
+            dev, calls, f"{path} (trained)")[0]
 
     stats = {}
     zero_counts()
-    summary = detection_test.test_net(CONFIG_CONVERGE, device=dev,
-                                      stats=stats)
+    summary = detection_test.test_net(config, device=dev, stats=stats)
     torch.cuda.synchronize()
-    eval_counts = read_counts("converge_eval", ("nms", "roi_align_fwd"))
-    log(f"converge eval: {stats['images']} images at batch "
+    eval_counts = read_counts(f"{path}_eval", ("nms", "roi_align_fwd"))
+    log(f"{path} eval: {stats['images']} images at batch "
         f"{stats['batch']}; AP {summary['AP']:.3f}, AP50 "
         f"{summary['AP50']:.3f}, AP75 {summary['AP75']:.3f} (the JAX "
-        f"package's record, one TPU v5e chip, 400 steps at batch 8: AP "
-        f"{JAX_CONVERGE['AP']:.3f}, AP50 {JAX_CONVERGE['AP50']:.3f}, AP75 "
-        f"{JAX_CONVERGE['AP75']:.3f}); RPN recall gate: waits for the "
-        f"RPN-only detector")
+        f"package's record, {record['chip']}, {4 * epochs} steps at batch 8:"
+        f" AP {record['AP']:.3f}, AP50 {record['AP50']:.3f}, AP75 "
+        f"{record['AP75']:.3f})"
+        + ("" if cascade else
+           "; RPN recall gate: waits for the RPN-only detector"))
     gates = {"last 20 < first 20 / 2": last < 0.5 * first,
              "AP >= 0.6": summary["AP"] >= 0.6,
              "AP50 >= 0.95": summary["AP50"] >= 0.95}
     if not all(gates.values()):
-        raise AssertionError(f"converge gates failed: {gates}")
+        raise AssertionError(f"{path} gates failed: {gates}")
     result = dict(steps=len(total), first20=first, last20=last,
                   seconds=seconds, **{k: summary[k] for k in
                                       ("AP", "AP50", "AP75")})
@@ -1461,7 +1841,7 @@ def converge(dev, smi):
 
 
 def syncbn_phases(dev, smi):
-    """Phases A, B and C in a fresh temporary directory, removed
+    """Phases A, B, C and H in a fresh temporary directory, removed
     afterwards."""
     import tempfile
 
@@ -1470,9 +1850,16 @@ def syncbn_phases(dev, smi):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_syncbn_")
     try:
         in_workdir(tmp)
-        out = {"training_syncbn": train_syncbn(dev, smi)}
-        out["cli"] = cli_syncbn(dev, smi)
-        out["converge"] = converge(dev, smi)
+        with phase("A training_syncbn"):
+            out = {"training_syncbn": train_syncbn(dev, smi)}
+        with phase("B train and test CLIs under torchrun"):
+            out["cli"] = cli_syncbn(dev, smi)
+        with phase("C converge"):
+            out["converge"] = converge(dev, smi)
+        with phase("H converge_cascade"):
+            out["converge_cascade"] = converge(
+                dev, smi, CONFIG_CONVERGE_CASCADE, "converge_cascade",
+                CONVERGE_CASCADE_EPOCHS, JAX_CONVERGE_CASCADE)
     finally:
         os.chdir(cwd)
         os.environ.clear()
@@ -1493,25 +1880,49 @@ def main():
     log(f"built {', '.join(_build.SOURCES)} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    nms = check_nms(dev)
-    roi = check_roi_align(dev)
-    fwd_train, bwd = check_roi_align_train(dev)
-    time_fwd_sets(dev)
-    time_bwd_sets(dev)
+    with phase("3 NMS and RoIAlign-forward kernels"):
+        nms = check_nms(dev)
+        roi = check_roi_align(dev)
+    with phase("3b RoIAlign with codes and backward"):
+        fwd_train, bwd = check_roi_align_train(dev)
+        time_fwd_sets(dev)
+        bwd_sets = time_bwd_sets(dev)
     paths = {}
-    paths["serving"], ms_img = serve(dev, smi)
-    paths["training"], ms_step, split = train(dev, smi)
-    paths["serving_bf16"], ms_img_bf16 = serve(dev, smi, CONFIG_BF16,
-                                               "serving_bf16")
-    paths["training_bf16"], ms_step_bf16, split_bf16 = train(
-        dev, smi, CONFIG_BF16, "training_bf16")
-    paths["train_cli"], paths["eval_cli"], eval_stats = cli_phases(dev, smi)
+    with phase("4 serving"):
+        paths["serving"], ms_img, _ = serve(dev, smi)
+    with phase("5 training"):
+        paths["training"], ms_step, split, _ = train(dev, smi)
+    with phase("6 serving_bf16"):
+        paths["serving_bf16"], ms_img_bf16, _ = serve(
+            dev, smi, CONFIG_BF16, "serving_bf16")
+    with phase("7 training_bf16"):
+        paths["training_bf16"], ms_step_bf16, split_bf16, _ = train(
+            dev, smi, CONFIG_BF16, "training_bf16")
+    with phase("8-9 train and eval CLIs"):
+        paths["train_cli"], paths["eval_cli"], eval_stats = cli_phases(
+            dev, smi)
+    cascade = cascade_phases(dev, smi, bwd_sets)
+    paths["serving_cascade"], ms_img_cascade, at_cascade_serving = \
+        cascade["serving"]
+    (paths["training_cascade"], ms_step_cascade, split_cascade,
+     profile_cascade) = cascade["training"]
+    k2_by_stage, k1_stage3, k2_stage3 = cascade["by_stage"]
+    paths["serving_cascade_r101"], ms_img_r101, at_r101 = \
+        cascade["serving_r101"]
+    log(f"training_cascade: {ms_step_cascade:.3f} ms/step against the "
+        f"flagship fp32 step of this call {ms_step:.3f} ms/step "
+        f"({ms_step_cascade / ms_step:.2f}x); serving_cascade "
+        f"{ms_img_cascade:.3f} ms/image against {ms_img:.3f} "
+        f"({ms_img_cascade / ms_img:.2f}x), serving_cascade_r101 "
+        f"{ms_img_r101:.3f} ms/image; on {smi}")
     sync = syncbn_phases(dev, smi)
-    paths["training_syncbn"], ms_step_sync, split_sync = \
+    paths["training_syncbn"], ms_step_sync, split_sync, _ = \
         sync["training_syncbn"]
     paths["train_cli_syncbn"], paths["eval_cli_syncbn"] = sync["cli"]
     (paths["converge"], paths["converge_eval"], at_converge,
      converge_result) = sync["converge"]
+    (paths["converge_cascade"], paths["converge_cascade_eval"],
+     at_converge_cascade, converge_cascade_result) = sync["converge_cascade"]
     log(f"training_syncbn: {ms_step_sync:.3f} ms/step "
         f"({B * 1e3 / ms_step_sync:.2f} img/s) against the FrozenBN bf16 "
         f"step of this call {ms_step_bf16:.3f} ms/step "
@@ -1529,7 +1940,10 @@ def main():
              ms=nms["ms"], plain_ms=nms["plain_ms"],
              bound_ms=nms["bound_ms"], bound_by=nms["bound_by"],
              library_ms=None, training=nms["train"],
-             converge=at_converge["nms"]),
+             converge=at_converge["nms"],
+             cascade_serving=at_cascade_serving["nms"],
+             cascade_r101_serving=at_r101["nms"],
+             converge_cascade=at_converge_cascade["nms"]),
         dict(name="roi_align_fwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:267",
              **launches("roi_align_fwd"),
@@ -1538,7 +1952,10 @@ def main():
              bound_ms=roi["float32"]["bound_ms"],
              bound_by=roi["float32"]["bound_by"], library_ms=None,
              bf16=roi["bfloat16"], with_codes=fwd_train,
-             converge=at_converge["roi_align_fwd"]),
+             converge=at_converge["roi_align_fwd"],
+             cascade_serving_stage3=at_cascade_serving["roi_align_fwd"],
+             cascade_training_stage3=k1_stage3,
+             converge_cascade=at_converge_cascade["roi_align_fwd"]),
         dict(name="roi_align_bwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:351",
              **launches("roi_align_bwd"),
@@ -1546,7 +1963,10 @@ def main():
              ms=bwd["float32"]["ms"], plain_ms=bwd["float32"]["plain_ms"],
              bound_ms=bwd["float32"]["bound_ms"],
              bound_by=bwd["float32"]["bound_by"], library_ms=None,
-             bf16=bwd["bfloat16"], converge=at_converge["roi_align_bwd"]),
+             bf16=bwd["bfloat16"], converge=at_converge["roi_align_bwd"],
+             cascade_training_stage3=k2_stage3,
+             cascade_training_by_stage=k2_by_stage,
+             converge_cascade=at_converge_cascade["roi_align_bwd"]),
     ]
     log(json.dumps({"serving_ms_per_image": ms_img,
                     "training_ms_per_step": ms_step,
@@ -1562,6 +1982,14 @@ def main():
                     "training_syncbn_split_ms": split_sync,
                     "converge": converge_result,
                     "converge_jax_record": JAX_CONVERGE,
+                    "serving_cascade_ms_per_image": ms_img_cascade,
+                    "training_cascade_ms_per_step": ms_step_cascade,
+                    "training_cascade_img_per_s": B * 1e3 / ms_step_cascade,
+                    "training_cascade_split_ms": split_cascade,
+                    "training_cascade_profile": profile_cascade,
+                    "serving_cascade_r101_ms_per_image": ms_img_r101,
+                    "converge_cascade": converge_cascade_result,
+                    "converge_cascade_jax_record": JAX_CONVERGE_CASCADE,
                     "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,7 +4,9 @@
         --shape 800 1333 --batch 2 --count 20
 
 Runs the test path stage by stage (normalise, backbone + FPN, RPN head,
-proposals, RoIAlign, box head + decode, per-class NMS), timing each stage with
+proposals, RoIAlign, box head + decode, per-class NMS; for a Cascade R-CNN
+config, RoIAlign and box head + refine of each of its three stages, then the
+score averaging over the three heads), timing each stage with
 CUDA events over `count` requests, then traces `count` whole requests with
 torch.profiler for the device's busy share and the top kernels by device time.
 Prints one JSON object with the card's name and power limit and how the
@@ -20,12 +22,42 @@ import torch
 from simpledet_torch.eval.postprocess import per_class_nms
 from simpledet_torch.infer import (Detector, card_name_and_power, full_fp32,
                                    precision, synthetic_batch)
+from simpledet_torch.models.cascade_rcnn import STAGES, CascadeRcnn
 from simpledet_torch.ops.image import device_normalize
+
+
+def cascade_stages(m, st, im_info):
+    """The three stages and the score averaging of a CascadeRcnn's test
+    path, as (name, thunk) pairs from st["props"] to st["score"] and
+    st["boxes"]."""
+    out = []
+
+    def roi_align(i):
+        def fn():
+            st["feat"] = m.extract_rois(st["pyr"], st["cur"] if i else
+                                        st["props"])
+        return fn
+
+    def head(i):
+        def fn():
+            st["cls"], delta = m.heads[i](st["feat"])
+            st["cur"] = m.refine(st["cur"] if i else st["props"], delta,
+                                 im_info, i)
+        return fn
+
+    for i, s in enumerate(STAGES):
+        out += [(f"roi_align_{s}", roi_align(i)), (f"box_head_{s}", head(i))]
+
+    def average():
+        st["score"], st["boxes"] = m.average_scores(st["feat"], st["cls"],
+                                                    st["cur"])
+
+    return out + [("score_average", average)]
 
 
 def stages(det, images, im_info):
     """The request as (name, thunk) pairs, each thunk reading the previous
-    stage's result from `st`."""
+    stage's result from `st`; the last one returns the detections."""
     m, st = det.model, {}
     mean_std = det.spec.pixel_norm
 
@@ -49,12 +81,14 @@ def stages(det, images, im_info):
         st["score"], st["boxes"] = m.predict(cls, delta, st["props"], im_info)
 
     def nms():
-        per_class_nms(st["score"], st["boxes"], score_thr=det.score_thr,
-                      nms_thr=det.nms_thr, max_det=det.max_det)
+        return per_class_nms(st["score"], st["boxes"],
+                             score_thr=det.score_thr, nms_thr=det.nms_thr,
+                             max_det=det.max_det)
 
+    middle = (cascade_stages(m, st, im_info) if isinstance(m, CascadeRcnn)
+              else [("roi_align", roi_align), ("box_head", head)])
     return [("normalize", norm), ("backbone_fpn", pyramid),
-            ("rpn_head", rpn_head), ("proposals", proposals),
-            ("roi_align", roi_align), ("box_head", head),
+            ("rpn_head", rpn_head), ("proposals", proposals), *middle,
             ("per_class_nms", nms)]
 
 

@@ -15,7 +15,11 @@ which runs against the same stand-ins; any other import of `simpledet_tpu`
 raises NotImplementedError naming the module. `read_config` restores
 `sys.modules` afterwards and returns a `ConfigSpec` that `dsl.py` builds from:
 the test symbol's, or with is_train=True the train symbol's, with what the
-trainer, the loader and the CLIs read.
+trainer, the loader and the CLIs read. The symbol's components are placed
+under the names of the detector's get_*_symbol arguments in the JAX DSL
+(`ROLES`: `bbox_head_2nd` and `bbox_head_3rd` for CascadeRcnn), every one
+of them; a detector without roles there, an argument given by keyword, or
+a component that has no role raises NotImplementedError.
 
 `patch_config_as_nothrow` and `load_config` are copies of the JAX package's
 (`simpledet_tpu/core/config.py`): a missing attribute on a config class reads
@@ -103,13 +107,13 @@ class Recorded:
         return self.args[0] if self.args else None
 
     def get_train_symbol(self, *components, **kwargs):
-        return Symbol(self.name, "train", components)
+        return Symbol(self.name, "train", components, kwargs)
 
     def get_test_symbol(self, *components, **kwargs):
-        return Symbol(self.name, "test", components)
+        return Symbol(self.name, "test", components, kwargs)
 
     def get_rpn_test_symbol(self, *components, **kwargs):
-        return Symbol(self.name, "rpn_test", components)
+        return Symbol(self.name, "rpn_test", components, kwargs)
 
 
 @dataclass
@@ -117,6 +121,7 @@ class Symbol:
     detector: str
     kind: str
     components: tuple
+    named: dict      # the arguments given by keyword
 
 
 class Normalizer:
@@ -256,7 +261,41 @@ class ConfigSpec:
         return self.general.name
 
 
-_ROLES = ("backbone", "neck", "rpn_head", "roi_extractor", "bbox_head")
+# Each detector's get_train_symbol / get_test_symbol arguments, in order, as
+# `simpledet_tpu/dsl.py` names them (get_rpn_test_symbol takes the first
+# three). A detector not listed here is not read.
+ROLES = {
+    "FasterRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
+                   "bbox_head"),
+    "CascadeRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
+                    "bbox_head", "bbox_head_2nd", "bbox_head_3rd"),
+}
+
+
+def place_components(sym):
+    """{role: Component} of every component a detector's get_*_symbol was
+    given, under ROLES' names; raises NotImplementedError for a detector
+    without roles, for an argument given by keyword, and for a component
+    that has no role or is not a config-side component instance."""
+    roles = ROLES.get(sym.detector)
+    if roles is None:
+        raise NotImplementedError(f"detector {sym.detector!r}: its "
+                                  "components are not read by the port")
+    call = f"{sym.detector}.get_{sym.kind}_symbol"
+    if sym.named:
+        raise NotImplementedError(f"{call}: arguments given by keyword "
+                                  f"({', '.join(sym.named)}) are not read")
+    if len(sym.components) > len(roles):
+        raise NotImplementedError(
+            f"{call} was given {len(sym.components)} components; the port "
+            f"places {len(roles)} ({', '.join(roles)})")
+    placed = dict(zip(roles, sym.components))
+    for role, comp in placed.items():
+        if not isinstance(comp, Recorded):
+            raise NotImplementedError(
+                f"{sym.detector}: {role} = {comp!r} is not a component the "
+                "port reads")
+    return {role: _component(comp) for role, comp in placed.items()}
 
 
 def read_config(path, is_train=False):
@@ -284,8 +323,7 @@ def read_config(path, is_train=False):
     sym = getattr(model_param, f"{kind}_symbol")
     if not isinstance(sym, Symbol):
         raise NotImplementedError(f"{path}: no {kind} symbol")
-    components = {role: _component(comp)
-                  for role, comp in zip(_ROLES, sym.components)}
+    components = place_components(sym)
     pixel_norm = next(((t.mean, t.std) for t in transform or ()
                        if isinstance(t, Norm2DImage)), None)
     pretrain = model_param.pretrain

@@ -30,7 +30,7 @@ from simpledet_torch.parallel import dist
 class Trainer:
     """A detector, its optimizer, its schedule and the samplers' generator.
 
-    model: a FasterRcnn; schedule: step -> lr; fixed_param and
+    model: a FasterRcnn or CascadeRcnn; schedule: step -> lr; fixed_param and
     excluded_param: the freezing substrings; pixel_norm: (mean, std) for
     uint8 batches; seed: the samplers' torch.Generator seed (plus the rank).
     `timer`, when set, is called with "forward", "backward" and "optimizer"

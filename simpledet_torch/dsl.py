@@ -1,7 +1,11 @@
 """Build the port's modules from a config's spec (counterpart of
 simpledet_tpu/dsl.py, which maps the same component names onto Flax modules).
 
-A component the port does not have raises NotImplementedError naming it.
+A detector or component the port does not have raises NotImplementedError
+naming it. FasterRcnn takes one box head (`FPNBbox2fcHead`, class-specific
+regression unless its regress_target says class_agnostic); CascadeRcnn takes
+three `CascadeBbox2fcHead`s, one a stage, each class-agnostic unless its
+regress_target says otherwise (`simpledet_tpu/dsl.py:371`).
 Each component computes in the dtype its param class asks for (`_dtype`:
 `fp16 = True` means bf16, as in the JAX package); parameters stay fp32. The
 backbone is normalised as its param class's normalizer says (`_norm`:
@@ -13,6 +17,8 @@ import torch
 
 from simpledet_torch import resolve_device
 from simpledet_torch.core.config import read_config
+from simpledet_torch.models.cascade_rcnn import (CascadeRcnn,
+                                                 is_class_agnostic)
 from simpledet_torch.models.faster_rcnn import FasterRcnn
 from simpledet_torch.models.fpn import FPNNeck
 from simpledet_torch.models.heads import Bbox2fcHead
@@ -20,10 +26,17 @@ from simpledet_torch.models.norm import normalizer_factory
 from simpledet_torch.models.resnet import ResNet
 from simpledet_torch.models.rpn import FPNRpnHead, RpnConvHead
 
-BACKBONES = {"MSRAResNet50V1FPN": 50}
-SUPPORTED = {"detector": ("FasterRcnn",), "neck": ("FPNNeck",),
-             "rpn_head": ("FPNRpnHead",), "roi_extractor": ("FPNRoiAlign",),
-             "bbox_head": ("FPNBbox2fcHead", "Bbox2fcHead")}
+BACKBONES = {"MSRAResNet50V1FPN": 50, "MSRAResNet101V1FPN": 101}
+_COMMON = {"neck": ("FPNNeck",), "rpn_head": ("FPNRpnHead",),
+           "roi_extractor": ("FPNRoiAlign",)}
+_CASCADE_HEAD = ("CascadeBbox2fcHead",)
+# detector -> role -> the component classes the port builds for it
+SUPPORTED = {
+    "FasterRcnn": dict(_COMMON, bbox_head=("FPNBbox2fcHead", "Bbox2fcHead")),
+    "CascadeRcnn": dict(_COMMON, bbox_head=_CASCADE_HEAD,
+                        bbox_head_2nd=_CASCADE_HEAD,
+                        bbox_head_3rd=_CASCADE_HEAD),
+}
 
 
 def _dtype(p):
@@ -40,19 +53,30 @@ def _norm(p):
     return normalizer_factory(n.type if n is not None else "fixbn")
 
 
-def _require(role, name):
-    ok = BACKBONES if role == "backbone" else SUPPORTED[role]
-    if name not in ok:
-        raise NotImplementedError(f"{role} {name!r} is not ported yet")
+def _require(detector, comps):
+    if detector not in SUPPORTED:
+        raise NotImplementedError(f"detector {detector!r} is not ported yet")
+    roles = dict(SUPPORTED[detector], backbone=BACKBONES)
+    for role, comp in comps.items():
+        if comp.name not in roles.get(role, ()):
+            raise NotImplementedError(f"{role} {comp.name!r} of {detector} "
+                                      "is not ported yet")
+    missing = sorted(set(roles) - set(comps))
+    if missing:
+        raise NotImplementedError(f"{detector} without {missing}")
+
+
+def _box_head(p, in_features, class_agnostic):
+    num_reg = 2 if class_agnostic else p.num_class
+    return Bbox2fcHead(p.num_class, num_reg, in_features, dtype=_dtype(p))
 
 
 def build_detector(spec, *, depth=None):
-    """FasterRcnn (on the CPU, weights not yet initialised) from a
-    ConfigSpec. `depth` overrides the backbone's depth (tests use 18)."""
-    _require("detector", spec.detector)
+    """FasterRcnn or CascadeRcnn (on the CPU, weights not yet initialised)
+    from a ConfigSpec. `depth` overrides the backbone's depth (tests use
+    18)."""
     comps = spec.components
-    for role, comp in comps.items():
-        _require(role, comp.name)
+    _require(spec.detector, comps)
 
     bb = comps["backbone"]
     backbone = ResNet(depth or bb.depth or BACKBONES[bb.name],
@@ -66,12 +90,17 @@ def build_detector(spec, *, depth=None):
     rpn_module = RpnConvHead(rpn.num_anchor, p_rpn.head.conv_channel or 256,
                              256, dtype=p_rpn.dtype)
     p_roi = comps["roi_extractor"].param
+    in_features = p_roi.out_size ** 2 * 256
+    if spec.detector == "CascadeRcnn":
+        p_bboxes = [comps[r].param for r in ("bbox_head", "bbox_head_2nd",
+                                             "bbox_head_3rd")]
+        heads = [_box_head(p, in_features, is_class_agnostic(p.regress_target))
+                 for p in p_bboxes]
+        return CascadeRcnn(backbone, neck, rpn_module, rpn, heads, p_roi,
+                           p_bboxes)
     p_bbox = comps["bbox_head"].param
-    num_reg = 2 if (p_bbox.regress_target.class_agnostic or False) \
-        else p_bbox.num_class
-    bbox_head = Bbox2fcHead(p_bbox.num_class, num_reg,
-                            p_roi.out_size ** 2 * 256,
-                            dtype=_dtype(p_bbox))
+    bbox_head = _box_head(p_bbox, in_features,
+                          p_bbox.regress_target.class_agnostic or False)
     return FasterRcnn(backbone, neck, rpn_module, rpn, bbox_head, p_roi,
                       p_bbox)
 

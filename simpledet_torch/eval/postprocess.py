@@ -2,7 +2,9 @@
 simpledet_tpu/eval/postprocess.py::per_class_nms with nms_type="nms").
 
 Batched over images: every (image, foreground class) pair is one problem of a
-single NMS call, then each image keeps its global top `max_det`.
+single NMS call, then each image keeps its global top `max_det`. A Cascade
+R-CNN's test outputs come in the same layout: its averaged probabilities as
+cls_score and its class-agnostic stage-3 boxes tiled over the classes.
 """
 import torch
 

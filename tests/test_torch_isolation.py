@@ -34,6 +34,11 @@ def test_reading_and_building_imports_no_jax():
         "tiny, _ = detector_from_config('config/converge_test.py',"
         " device='cpu', is_train=True)\n"
         "assert len(tiny.backbone.units[0]) == 2\n"
+        "for cfg in ('cascade_r50v1_fpn_1x', 'cascade_r101v1_fpn_1x'):\n"
+        "    cascade, _ = detector_from_config(f'config/{cfg}.py',"
+        " device='cpu', is_train=True)\n"
+        "    assert len(cascade.heads) == 3\n"
+        "import simpledet_torch.breakdown\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(sum(p.numel() for p in model.parameters()))\n")

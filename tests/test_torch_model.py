@@ -305,13 +305,17 @@ def test_flagship_config_builds_and_maps_all_leaves():
 
 
 @pytest.mark.parametrize("path,what", [
-    ("config/cascade_r50v1_fpn_1x.py", "CascadeRcnn"),
+    # a config template that the port's copy does not hold
+    ("config/retina_r101v1_fpn_1x.py", "retina_fpn_config"),
     ("config/retina_r50v1_fpn_1x.py", "RetinaNet"),
     # reads the JAX package's mask transforms before its detector is built
     ("config/mask_r50v1_fpn_1x.py", "simpledet_tpu.data"),
     ("config/tridentnet_r50v2c4_c5_1x.py", "TridentFasterRcnn"),
     # a config template that the port's copy does not hold
     ("config/faster_r101v1c4_c5_512roi_1x_fp16.py", "trident_c4_config"),
+    # a detector whose components the reader has no roles for: it raises
+    # rather than keeping the first five (its train symbol has a sixth)
+    ("config/converge_kd.py", "FitNetFasterRcnn"),
 ])
 def test_unported_configs_raise_naming_what_is_missing(path, what):
     import symbol.builder   # the real shim stays in place around the reader
