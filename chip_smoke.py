@@ -82,6 +82,23 @@ Phases, each fatal on error:
      meet its busiest 4 x 4-cell tile, beside phase 3b's mixed and
      identical roi sets;
   G. phase D on config/cascade_r101v1_fpn_1x.py (R101v1-FPN);
+  I. serve config/mask_r50v1_fpn_1x.py (Mask R-CNN, R50v1-FPN, 81 classes,
+     fp32 without TF32) as phase 4 does: 2 RoIAlign launches a request (7 x
+     7 on the proposals, 14 x 14 on the kept boxes), detections and
+     mask_prob against the plain-version path (1e-4); the kernels on one
+     request's own inputs;
+  J. train it as phase 5 does, each gt box with its inscribed ellipse's
+     16-gon (edge tensor [100, 1250, 5]): 2 RoIAlign forwards and
+     backwards a step; the device's idle share and the mask branch's
+     profiler ranges over 3 traced steps; on one more recorded step the
+     mask targets' time and memory, K1 with codes and K2 at 7 x 7 (512
+     rois) and at 14 x 14 (the 128 fg rois an image) against their plain
+     versions, K2's busiest 4 x 4-cell tile, K1 and K2 at 14 x 14 beside
+     their bounds;
+  K. in a fresh temporary directory: an ellipse-polygon micro-COCO through
+     the train CLI on config/converge_mask.py (20 iterations) and
+     `simpledet_torch.mask_test`: bbox and segm summaries, the result json
+     in COCO RLE;
   then, beside phases A-C:
   H. config/converge_cascade.py (depth-18 FPN, SyncBN, 3 stages) from
      scratch at batch 8 for 480 steps through the train CLI, the three
@@ -89,13 +106,21 @@ Phases, each fatal on error:
      trained model (whose rois cluster on the gt boxes), the test CLI: the
      gates of the JAX package's tests/test_converge_cascade.py, AP beside
      the JAX record;
+  L. config/converge_mask.py (depth-18 FPN, SyncBN, the mask branch) from
+     scratch on 16 ellipse images at batch 8 for 480 steps through the
+     train CLI, the kernels at its shapes, K1 and K2 at 14 x 14 on one more
+     step of the trained model, then `simpledet_torch.mask_test`: the gates
+     of the JAX package's tests/test_converge_mask.py (box AP >= 0.6, segm
+     AP >= 0.6, segm AP50 >= 0.95), beside the JAX record;
   10. print each phase's wall time as it ends, the `kernels` JSON line
      (launches per path: serving, training, serving_bf16, training_bf16,
      train_cli, eval_cli, serving_cascade, training_cascade,
-     serving_cascade_r101, training_syncbn, train_cli_syncbn,
-     eval_cli_syncbn, converge, converge_eval, converge_cascade,
-     converge_cascade_eval; times at converge_test's shapes and on the
-     cascade's inputs), the card's line, and {"ok": true, ...}.
+     serving_cascade_r101, serving_mask, training_mask, train_cli_mask,
+     mask_test_cli, training_syncbn, train_cli_syncbn, eval_cli_syncbn,
+     converge, converge_eval, converge_cascade, converge_cascade_eval,
+     converge_mask, converge_mask_eval; times at converge_test's shapes, on
+     the cascade's and the Mask R-CNN's inputs), the card's line, and
+     {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -305,21 +330,24 @@ def mixed_rois(rng, dev, r=R):
     return torch.from_numpy(rois.astype(np.float32)).to(dev)
 
 
-def touched_bytes(kroi, rois, itemsize):
-    """Bytes of the distinct feature cells these rois' bilinear taps read."""
+def touched_bytes(kroi, rois, itemsize, out_size=7, level_hw=None, c=C):
+    """Bytes of the distinct feature cells these rois' bilinear taps read
+    (on the main path's levels unless others are given)."""
+    level_hw = level_hw or LEVEL_HW
+    b = rois.shape[0]
     rois_f = rois.reshape(-1, 4)
-    lvl = kroi.roi_level_index(rois_f, LEVEL_HW, STRIDES, 224, 4, 7)
-    (yl, yh, _), (xl, xh, _), _ = kroi._sample_taps(rois_f, lvl, LEVEL_HW,
-                                                    STRIDES, 7)
-    img = torch.arange(B, device=rois.device).repeat_interleave(
+    lvl = kroi.roi_level_index(rois_f, level_hw, STRIDES, 224, 4, out_size)
+    (yl, yh, _), (xl, xh, _), _ = kroi._sample_taps(rois_f, lvl, level_hw,
+                                                    STRIDES, out_size)
+    img = torch.arange(b, device=rois.device).repeat_interleave(
         rois.shape[1])
-    hw = torch.tensor(LEVEL_HW, device=rois.device)
-    base = (lvl * B + img) * int(hw.prod(1).max())
+    hw = torch.tensor(level_hw, device=rois.device)
+    base = (lvl * b + img) * int(hw.prod(1).max())
     ys = torch.cat([yl, yh], 2).reshape(len(lvl), -1)
     xs = torch.cat([xl, xh], 2).reshape(len(lvl), -1)
     cells = (base[:, None, None] + ys[:, :, None] * hw[lvl, 1][:, None, None]
              + xs[:, None, :])
-    return int(torch.unique(cells).numel()) * C * itemsize
+    return int(torch.unique(cells).numel()) * c * itemsize
 
 
 def fwd_traffic(kroi, rois):
@@ -646,8 +674,9 @@ def read_counts(path, required):
 
 def stage_count(model):
     """RoIAlign launches a request or step: one a box-head stage (3 for a
-    Cascade R-CNN)."""
-    return len(getattr(model, "heads", (model,)))
+    Cascade R-CNN), one more for a mask branch."""
+    return len(getattr(model, "heads", (model,))) + int(
+        hasattr(model, "mask_head"))
 
 
 def serve(dev, smi, config=CONFIG, path="serving"):
@@ -682,7 +711,8 @@ def serve(dev, smi, config=CONFIG, path="serving"):
     check_feature_dtype(det.model, requests[1][0], requests[1][1],
                         det.spec.pixel_norm)
 
-    for boxes, scores, classes, valid in results + [live]:
+    for out in results + [live]:
+        boxes, scores, classes, valid = out[:4]
         assert boxes.shape == (B, det.max_det, 4), boxes.shape
         assert scores.shape == classes.shape == valid.shape == (B, det.max_det)
         assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
@@ -690,10 +720,15 @@ def serve(dev, smi, config=CONFIG, path="serving"):
         assert ((classes[v] >= 1) & (classes[v] < 81)).all()
         assert (boxes[v] >= 0).all() and (boxes[v][:, 2] <= W - 1).all()
         assert (boxes[v][:, 3] <= H - 1).all()
+        if det.has_masks:
+            m = out[4]
+            assert m.shape == (B, det.max_det, 28, 28), m.shape
+            assert torch.isfinite(m).all() and ((m >= 0) & (m <= 1)).all()
     assert bool(live[3].all()), "score_thr=0 request should fill max_det"
     log(f"{path}: {ms_img:.3f} ms per image at {H}x{W}, batch {B}, incl. "
-        f"per-class NMS, {how}, on {smi}; {int(results[0][3].sum())} "
-        "detections in the first timed request")
+        f"per-class NMS{' and the mask head' if det.has_masks else ''}, "
+        f"{how}, on {smi}; {int(results[0][3].sum())} detections in the "
+        "first timed request")
 
     # the same requests with both kernels replaced by their plain versions
     import simpledet_torch.models.faster_rcnn as frcnn
@@ -710,7 +745,10 @@ def serve(dev, smi, config=CONFIG, path="serving"):
         assert torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])
         torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-3)
-    log(f"{path}: detections agree with the plain-version path")
+        if det.has_masks:
+            torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-4)
+    log(f"{path}: detections{' and mask_prob' if det.has_masks else ''} "
+        "agree with the plain-version path")
     return counts, ms_img, det
 
 
@@ -762,17 +800,20 @@ def plain_kernels():
 def recording():
     """Context: every call the model makes to the RoIAlign and NMS wrappers,
     passed on to them and recorded in {"roi_align": [(feats, rois, kw)],
-    "nms": [(sorted boxes, sorted valid, thr)]} (features detached)."""
+    "nms": [(sorted boxes, sorted valid, thr)], "mask_target": [(args,
+    kw)]} (features detached; the last: a mask branch's target calls)."""
     import contextlib
 
     import simpledet_torch.models.faster_rcnn as frcnn
+    import simpledet_torch.models.mask_rcnn as mrcnn
     import simpledet_torch.ops.nms as onms
 
-    calls = {"roi_align": [], "nms": []}
+    calls = {"roi_align": [], "nms": [], "mask_target": []}
 
     @contextlib.contextmanager
     def recorded():
-        saved = (onms.nms_keep_sorted, frcnn.multilevel_roi_align)
+        saved = (onms.nms_keep_sorted, frcnn.multilevel_roi_align,
+                 mrcnn.batched_mask_target)
 
         def nms(boxes, valid, thr):
             calls["nms"].append((boxes, valid, thr))
@@ -783,11 +824,17 @@ def recording():
                                        dict(strides=strides, **kw)))
             return saved[1](feats, rois, strides, **kw)
 
-        onms.nms_keep_sorted, frcnn.multilevel_roi_align = nms, roi_align
+        def mask_target(*args, **kw):
+            calls["mask_target"].append((args, kw))
+            return saved[2](*args, **kw)
+
+        (onms.nms_keep_sorted, frcnn.multilevel_roi_align,
+         mrcnn.batched_mask_target) = nms, roi_align, mask_target
         try:
             yield calls
         finally:
-            onms.nms_keep_sorted, frcnn.multilevel_roi_align = saved
+            (onms.nms_keep_sorted, frcnn.multilevel_roi_align,
+             mrcnn.batched_mask_target) = saved
     return recorded()
 
 
@@ -873,10 +920,11 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 
 def train(dev, smi, config=CONFIG, path="training", trainer=None,
           batch=None, profile=False, record=False):
-    """The config's seeded train detector on a synthetic batch, its
-    FrozenBN folded; or, given them, `trainer` on `batch` (images, im_info,
-    gt). A step launches the RoIAlign forward and backward once a stage
-    (`stage_count`). Returns (launch counts, ms per step, its forward /
+    """The config's seeded train detector on a synthetic batch (a mask
+    config's: with the gt boxes' ellipse polygons), its FrozenBN folded; or,
+    given them, `trainer` on `batch` (images, im_info, gt[, gt_poly]). A
+    step launches the RoIAlign forward and backward once a stage and once
+    for a mask branch (`stage_count`). Returns (launch counts, ms per step, its forward /
     backward / optimizer split, extra): extra holds, with `profile`, the
     device's busy and idle share of traced steps, and with `record`, the
     kernels' calls of one more step (`recording`)."""
@@ -886,15 +934,17 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
     from simpledet_torch.core.train import Trainer
     from simpledet_torch.infer import precision
     from simpledet_torch.models.norm import batch_stat_names
-    from simpledet_torch.train import PhaseTimer, synthetic_train_batch
+    from simpledet_torch.train import (PhaseTimer, synthetic_gt_poly,
+                                       synthetic_train_batch)
 
     if trainer is None:
         trainer = Trainer.from_config(config, device=dev, seed=0)
         images, im_info, gt = synthetic_train_batch(B, H, W, 0)
-        images = images.to(dev)
-        trainer.fold_batch_stats(images, im_info)
-    else:
-        images, im_info, gt = batch
+        batch = (images.to(dev), im_info, gt)
+        if hasattr(trainer.model, "mask_head"):
+            batch += (synthetic_gt_poly(gt),)
+        trainer.fold_batch_stats(*batch[:2])
+    images, im_info = batch[:2]
     model = trainer.model
     how = precision(model)
     check_feature_dtype(model, images, im_info, trainer.pixel_norm)
@@ -915,7 +965,8 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         data, info = trainer._inputs(images, im_info)
-        losses, aux = model(data, info, torch.as_tensor(gt).to(dev),
+        losses, aux = model(data, info,
+                            *[torch.as_tensor(x).to(dev) for x in batch[2:]],
                             mode="train", generator=gen)
     cls_key, weight = "bbox_cls_loss", 1.0
     if cls_key not in losses:
@@ -935,7 +986,7 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
     # half the logits' variance over the classes (1.3 on the SyncBN path,
     # whose box-head inputs are batch-normalised, not folded)
     half_var = float(z.var(-1).mean()) / 2
-    first = check(0, trainer.step(images, im_info, gt))
+    first = check(0, trainer.step(*batch))
     # gross checks only: a wrong normalisation is off by orders of magnitude
     for k, want, tol in ((cls_key, weight * (np.log(81) + half_var), 1.0),
                          ("rpn_cls_loss", np.log(2), 0.2)):
@@ -943,7 +994,7 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
             raise AssertionError(f"step 0 {k} {first[k]:.4f} is not near "
                                  f"{want:.4f}")
     for i in range(1, TRAIN_WARMUP):
-        check(i, trainer.step(images, im_info, gt))
+        check(i, trainer.step(*batch))
     torch.cuda.synchronize()
 
     timer = PhaseTimer()
@@ -953,7 +1004,7 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
     for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_TIMED):
         t0 = time.perf_counter()
         timer.start()
-        losses = trainer.step(images, im_info, gt)
+        losses = trainer.step(*batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         timer.collect()
@@ -972,21 +1023,23 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
         f"{H}x{W}, batch {B}, {how}, on {smi}; per step "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
     extra = {}
+    if record:
+        with recording() as calls:
+            trainer.step(*batch)
+        torch.cuda.synchronize()
+        extra["calls"] = calls
     if profile:
-        traced_ms, busy_ms, top = device_profile(
-            lambda: trainer.step(images, im_info, gt), PROFILED_STEPS)
+        traced_ms, busy_ms, top, ranges = device_profile(
+            lambda: trainer.step(*batch), PROFILED_STEPS)
         extra.update(traced_step_ms=traced_ms, device_busy_ms=busy_ms,
                      device_idle_share=max(0.0, 1.0 - busy_ms / traced_ms),
-                     top_kernels_ms=top)
+                     top_kernels_ms=top, ranges_device_ms=ranges)
         log(f"{path}: {PROFILED_STEPS} traced steps (torch.profiler): "
             f"{traced_ms:.3f} ms a step, device busy {busy_ms:.3f} ms, idle "
             f"{extra['device_idle_share']:.1%}; top kernels "
-            + json.dumps({k: round(v, 3) for k, v in list(top.items())[:6]}))
-    if record:
-        with recording() as calls:
-            trainer.step(images, im_info, gt)
-        torch.cuda.synchronize()
-        extra["calls"] = calls
+            + json.dumps({k: round(v, 3) for k, v in list(top.items())[:6]})
+            + (f"; profiler ranges (device ms a step) {json.dumps(ranges)}"
+               if ranges else ""))
 
     after = model.state_dict()
     for name, trainable in trainer.trainable.items():
@@ -1014,7 +1067,7 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
         trainer.step_count = saved[2]
         trainer.generator.manual_seed(1234)
         zero_counts()
-        losses = trainer.step(images, im_info, gt)
+        losses = trainer.step(*batch)
         torch.cuda.synchronize()
         grads = {n: p.grad.clone() for n, p in model.named_parameters()
                  if p.grad is not None}
@@ -1261,10 +1314,11 @@ def nms_bound(boxes, valid):
 
 def check_serving_calls(calls, path):
     """The kernels on a serving request's own inputs (recorded by
-    `recording`): each RoIAlign forward (one a stage) bit for bit against
-    the plain version, each NMS call's keep flags against the plain
-    version's. Times the stage-3 forward and the per-class NMS (the largest
-    NMS call) beside their bounds and plain versions."""
+    `recording`): each RoIAlign forward (one a stage, one for a mask
+    branch) bit for bit against the plain version, each NMS call's keep
+    flags against the plain version's. Times the last RoIAlign forward (a
+    cascade's stage 3, a Mask R-CNN's mask RoIAlign) and the per-class NMS
+    (the largest NMS call) beside their bounds and plain versions."""
     from simpledet_torch.kernels import nms as knms
     from simpledet_torch.kernels import roi_align as kroi
 
@@ -1278,8 +1332,10 @@ def check_serving_calls(calls, path):
                                  " differs from the plain version")
     feats, rois, kw = calls["roi_align"][-1]
     isz = feats[0].element_size()
-    nbytes = (touched_bytes(kroi, rois, isz) + rois.numel() * 4
-              + got.numel() * isz)
+    nbytes = (touched_bytes(kroi, rois, isz, kw["out_size"],
+                            [tuple(f.shape[1:3]) for f in feats],
+                            feats[0].shape[-1])
+              + rois.numel() * 4 + got.numel() * isz)
     bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * got.numel())
     out["roi_align_fwd"] = dict(
         ms=cuda_ms(lambda: kroi.roi_align_fwd_cuda(feats, rois, **kw), 20),
@@ -1303,7 +1359,9 @@ def check_serving_calls(calls, path):
         bound_ms=bms, bound_by=by, max_abs_err=0.0,
         shape=list(boxes.shape[:2]))
     for name, v in out.items():
-        log(f"{path}: {name} on the request's own inputs {v['shape']}: "
+        log(f"{path}: {name} on the request's own inputs {v['shape']}"
+            + (f" at {kw['out_size']}x{kw['out_size']}"
+               if name == "roi_align_fwd" else "") + ": "
             f"identical to the plain version ({len(calls['roi_align'])} "
             f"RoIAlign and {len(calls['nms'])} NMS calls); kernel "
             f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
@@ -1327,7 +1385,7 @@ def serve_cascade(dev, smi, config, path):
     return counts, ms_img, check_serving_calls(calls, path)
 
 
-def tile_load(kroi, rois, level_hw, strides=STRIDES):
+def tile_load(kroi, rois, level_hw, strides=STRIDES, out_size=7):
     """How many of these rois [B, R, 4] meet each of the backward's
     kTile x kTile-cell tiles: a roi meets a tile of its level and image when
     the tap window of its non-empty bins overlaps it, as roi_taps_kernel
@@ -1335,9 +1393,9 @@ def tile_load(kroi, rois, level_hw, strides=STRIDES):
     tiles met, the number of tiles met)."""
     b, r = rois.shape[:2]
     rois_f = rois.reshape(-1, 4)
-    lvl = kroi.roi_level_index(rois_f, level_hw, strides, 224, 4, 7)
-    (yl, yh, _), (xl, xh, _), empty = kroi._sample_taps(rois_f, lvl,
-                                                        level_hw, strides, 7)
+    lvl = kroi.roi_level_index(rois_f, level_hw, strides, 224, 4, out_size)
+    (yl, yh, _), (xl, xh, _), empty = kroi._sample_taps(
+        rois_f, lvl, level_hw, strides, out_size)
     rows_on, cols_on = ~empty.all(2), ~empty.all(1)
 
     def window(lo, hi, on):
@@ -1367,51 +1425,88 @@ def tile_load(kroi, rois, level_hw, strides=STRIDES):
     return int(c.max()), float(met.double().mean()), int(met.numel())
 
 
-def stage_readings(dev, calls, path):
-    """K1 with tie codes and K2 on each stage's features and rois of one
-    recorded training step of a cascade (`recording`): K1 bit for bit
-    against the plain version, K2 against the plain backward (1e-5 of each
-    level's max |grad|) on a random output gradient; K2's time per stage
-    and how many rois meet its busiest tiles. Returns ({stage: reading},
-    the last stage's (feats, rois, kw, codes, grad))."""
+def roi_reading(dev, feats, rois, kw, label, rng):
+    """K1 with tie codes and K2 on one recorded RoIAlign call (`recording`):
+    K1 bit for bit against the plain version, K2 against the plain backward
+    (1e-5 of each level's max |grad|) on a random output gradient; K2's time
+    and how many rois meet its busiest tiles. Returns (reading, (codes,
+    grad))."""
     from simpledet_torch.kernels import roi_align as kroi
 
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    out, codes = kroi.roi_align_fwd_cuda(feats, rois, **kw, with_codes=True)
+    torch.cuda.synchronize()
+    want, want_codes = kroi.multilevel_roi_align_plain(feats, rois, **kw,
+                                                       with_codes=True)
+    if not (torch.equal(codes, want_codes) and torch.equal(out, want)):
+        raise AssertionError(f"{label}: RoIAlign forward with codes differs "
+                             "from the plain version")
+    g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(
+        dev, out.dtype)
+    got = kroi.roi_align_bwd_cuda(g, codes, rois, level_hw, dtype=out.dtype,
+                                  **kw)
+    torch.cuda.synchronize()
+    ref = kroi.multilevel_roi_align_bwd_plain(g, codes, rois, level_hw,
+                                              dtype=out.dtype, **kw)
+    err = 0.0
+    for gl, wl in zip(got, ref):
+        scale = float(wl.abs().max())
+        torch.testing.assert_close(gl, wl, rtol=0, atol=1e-5 * scale)
+        err = max(err, float((gl - wl).abs().max()))
+    ms = cuda_ms(lambda: kroi.roi_align_bwd_cuda(
+        g, codes, rois, level_hw, dtype=out.dtype, **kw), 20)
+    p = kw["out_size"]
+    busiest, mean, met = tile_load(kroi, rois, level_hw, kw["strides"], p)
+    reading = dict(ms=ms, busiest_tile_rois=busiest, mean_tile_rois=mean,
+                   tiles_met=met, max_abs_err=err,
+                   shape=[*rois.shape[:2], p])
+    log(f"{label} (B={rois.shape[0]}, R={rois.shape[1]}, P={p}, levels "
+        f"{level_hw}): K1 with codes identical to the plain version; K2 "
+        f"{ms:.4f} ms (max_abs_err {err:.3g}); rois a {K_TILE}x{K_TILE}-cell"
+        f" tile: busiest {busiest}, mean {mean:.2f} over {met} tiles met")
+    return reading, (codes, g)
+
+
+def stage_readings(dev, calls, path):
+    """`roi_reading` on each stage's features and rois of one recorded
+    training step of a cascade. Returns ({stage: reading}, the last stage's
+    (feats, rois, kw, codes, grad))."""
     rng = np.random.RandomState(7)
     by_stage = {}
     for s, (feats, rois, kw) in zip(CASCADE_STAGES, calls["roi_align"]):
-        level_hw = [tuple(f.shape[1:3]) for f in feats]
-        out, codes = kroi.roi_align_fwd_cuda(feats, rois, **kw,
-                                             with_codes=True)
-        torch.cuda.synchronize()
-        want, want_codes = kroi.multilevel_roi_align_plain(
-            feats, rois, **kw, with_codes=True)
-        if not (torch.equal(codes, want_codes) and torch.equal(out, want)):
-            raise AssertionError(f"{path} stage {s}: RoIAlign forward with "
-                                 "codes differs from the plain version")
-        g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(
-            dev, out.dtype)
-        got = kroi.roi_align_bwd_cuda(g, codes, rois, level_hw,
-                                      dtype=out.dtype, **kw)
-        torch.cuda.synchronize()
-        ref = kroi.multilevel_roi_align_bwd_plain(g, codes, rois, level_hw,
-                                                  dtype=out.dtype, **kw)
-        err = 0.0
-        for gl, wl in zip(got, ref):
-            scale = float(wl.abs().max())
-            torch.testing.assert_close(gl, wl, rtol=0, atol=1e-5 * scale)
-            err = max(err, float((gl - wl).abs().max()))
-        ms = cuda_ms(lambda: kroi.roi_align_bwd_cuda(
-            g, codes, rois, level_hw, dtype=out.dtype, **kw), 20)
-        busiest, mean, met = tile_load(kroi, rois, level_hw, kw["strides"])
-        by_stage[s] = dict(ms=ms, busiest_tile_rois=busiest,
-                           mean_tile_rois=mean, tiles_met=met,
-                           max_abs_err=err)
-        log(f"{path} stage {s} (B={rois.shape[0]}, R={rois.shape[1]}, "
-            f"levels {level_hw}): K1 with codes identical to the plain "
-            f"version; K2 {ms:.4f} ms (max_abs_err {err:.3g}); rois a "
-            f"{K_TILE}x{K_TILE}-cell tile: busiest {busiest}, mean "
-            f"{mean:.2f} over {met} tiles met")
+        by_stage[s], (codes, g) = roi_reading(dev, feats, rois, kw,
+                                              f"{path} stage {s}", rng)
     return by_stage, (feats, rois, kw, codes, g)
+
+
+def roi_bounds(feats, rois, kw, codes, g, k2):
+    """K1 with codes and K2 on one call's inputs beside their bounds and
+    plain versions (K2's time and error: `k2`, a `roi_reading`). Returns
+    (K1's, K2's) {ms, plain_ms, bound_ms, bound_by, max_abs_err}."""
+    from simpledet_torch.kernels import roi_align as kroi
+
+    isz = feats[0].element_size()
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    b, c = rois.shape[0], feats[0].shape[-1]
+    n_out = codes.numel()
+    nbytes = (touched_bytes(kroi, rois, isz, kw["out_size"], level_hw, c)
+              + rois.numel() * 4 + n_out * isz + n_out)
+    bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * n_out)
+    k1 = dict(ms=cuda_ms(lambda: kroi.roi_align_fwd_cuda(
+        feats, rois, **kw, with_codes=True), 20),
+        plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_plain(
+            feats, rois, **kw, with_codes=True), 3, 1),
+        bound_ms=bms, bound_by=by, max_abs_err=0.0)
+    maps = sum(b * h * w * c for h, w in level_hw) * isz
+    popcount = sum((codes.int() >> st) & 1 for st in range(4))
+    bms, by = bound_ms(g.numel() * isz + codes.numel() + rois.numel() * 4
+                       + maps, BWD_OPS_PER_OUT * n_out
+                       + BWD_OPS_PER_TIED_SAMPLE * float(popcount.sum()))
+    k2 = dict(ms=k2["ms"],
+              plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_bwd_plain(
+                  g, codes, rois, level_hw, dtype=g.dtype, **kw), 3, 1),
+              bound_ms=bms, bound_by=by, max_abs_err=k2["max_abs_err"])
+    return k1, k2
 
 
 def cascade_roi_kernels(dev, calls, bwd_sets):
@@ -1437,27 +1532,7 @@ def cascade_roi_kernels(dev, calls, bwd_sets):
         + f"; time_bwd_sets in this call: mixed rois {mixed:.4f} ms (busiest"
         f" tile {mb[0]} rois, mean {mb[1]:.2f}), 512 identical rois "
         f"{alike:.4f} ms (every roi meets the same tiles)")
-
-    isz = feats[0].element_size()
-    n_out = codes.numel()
-    nbytes = (touched_bytes(kroi, rois, isz) + rois.numel() * 4
-              + n_out * isz + n_out)
-    bms, by = bound_ms(nbytes, ROI_OPS_PER_OUT * n_out)
-    k1 = dict(ms=cuda_ms(lambda: kroi.roi_align_fwd_cuda(
-        feats, rois, **kw, with_codes=True), 20),
-        plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_plain(
-            feats, rois, **kw, with_codes=True), 3, 1),
-        bound_ms=bms, bound_by=by, max_abs_err=0.0)
-    maps = sum(B * h * w * C for h, w in LEVEL_HW) * isz
-    popcount = sum((codes.int() >> st) & 1 for st in range(4))
-    bms, by = bound_ms(g.numel() * isz + codes.numel() + rois.numel() * 4
-                       + maps, BWD_OPS_PER_OUT * n_out
-                       + BWD_OPS_PER_TIED_SAMPLE * float(popcount.sum()))
-    k2 = dict(ms=by_stage["3rd"]["ms"],
-              plain_ms=cuda_ms(lambda: kroi.multilevel_roi_align_bwd_plain(
-                  g, codes, rois, LEVEL_HW, dtype=torch.float32, **kw), 3, 1),
-              bound_ms=bms, bound_by=by,
-              max_abs_err=by_stage["3rd"]["max_abs_err"])
+    k1, k2 = roi_bounds(feats, rois, kw, codes, g, by_stage["3rd"])
     log(f"stage-3 rois: K1 with codes {k1['ms']:.4f} ms (plain "
         f"{k1['plain_ms']:.4f}, bound {k1['bound_ms']:.6f}, {k1['bound_by']});"
         f" K2 {k2['ms']:.4f} ms (plain {k2['plain_ms']:.4f}, bound "
@@ -1485,18 +1560,241 @@ def cascade_phases(dev, smi, bwd_sets):
     return out
 
 
+# ------------------------------------------------- phases I, J and K
+
+CONFIG_MASK = os.path.join(REPO, "config", "mask_r50v1_fpn_1x.py")
+# after 4 steps the box head scores every roi background (no detection
+# passes 0.05); after 20 it detects
+CLI_MASK_EPOCHS = 10
+
+
+def by_size(calls):
+    """{"roi_align_fwd_<P>": RoIAlign calls at P x P, "nms": NMS calls} of
+    one recorded request or step."""
+    out = {}
+    for _, _, kw in calls["roi_align"]:
+        k = f"roi_align_fwd_{kw['out_size']}"
+        out[k] = out.get(k, 0) + 1
+    out["nms"] = len(calls["nms"])
+    return out
+
+
+def serve_mask(dev, smi):
+    """Phase I: phase 4 on config/mask_r50v1_fpn_1x.py (2 RoIAlign launches
+    a request, at 7 x 7 and at 14 x 14 on the kept boxes; detections and
+    mask_prob against the plain-version path), then the kernels on one
+    request's own inputs. Returns (launch counts, ms per image, the
+    request's calls by size, readings on its inputs)."""
+    from simpledet_torch.infer import synthetic_batch
+
+    counts, ms_img, det = serve(dev, smi, CONFIG_MASK, "serving_mask")
+    images, im_info = synthetic_batch(B, H, W, 1)
+    with recording() as calls:
+        det.detect(images.to(dev), im_info)
+    torch.cuda.synchronize()
+    sizes = by_size(calls)
+    log(f"serving_mask: one request's kernel calls {sizes}")
+    if sizes != {"roi_align_fwd_7": 1, "roi_align_fwd_14": 1, "nms": 2}:
+        raise AssertionError(f"serving_mask: kernel calls {sizes}")
+    return counts, ms_img, sizes, check_serving_calls(calls, "serving_mask")
+
+
+def mask_target_reading(calls, gt_poly):
+    """The mask-target stage of one recorded step (`recording`), on the
+    edge columns the model kept (`trim_padding`) and on the whole edge
+    tensor gt_poly [B, G, E, 5] of the step's batch: their times (CUDA
+    events) and the device memory each allocates beyond what was allocated
+    before it (max_memory_allocated); both give the same targets."""
+    from simpledet_torch.targets.mask_target import batched_mask_target
+
+    args, kw = calls["mask_target"][0]
+    out = {}
+    for name, a in (("trimmed", args), ("whole", args[:3] + (gt_poly,))):
+        ms = cuda_ms(lambda: batched_mask_target(*a, **kw), 5)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        targets = batched_mask_target(*a, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[name] = dict(ms=ms, peak_bytes=int(peak), rois=list(a[0].shape),
+                         gt_poly=list(a[3].shape))
+        out[name + "_targets"] = targets
+        log(f"mask targets, {name} edge tensor (rois {list(a[0].shape)}, "
+            f"gt_poly {list(a[3].shape)}, {kw.get('mask_size')} x "
+            f"{kw.get('mask_size')}): {ms:.3f} ms, {peak / 2 ** 20:.1f} MiB "
+            "above the step's allocation")
+    if not torch.equal(out.pop("trimmed_targets"), out.pop("whole_targets")):
+        raise AssertionError("mask targets differ on the trimmed edges")
+    fg = (args[2].sum(1)).tolist()
+    log(f"mask targets: identical on both; {fg} fg rois of "
+        f"{args[0].shape[1]} an image")
+    out["fg_rois_per_image"] = fg
+    return out
+
+
+def mask_roi_kernels(dev, calls, bwd_sets, path):
+    """K1 with codes and K2 on one recorded Mask R-CNN training step's 7 x 7
+    (box) and 14 x 14 (mask, fg rois) calls (`roi_reading`), beside
+    time_bwd_sets' mixed and identical rois of the same call; K1 and K2 at
+    14 x 14 beside their bounds and plain versions. Returns ({"7": reading,
+    "14": reading}, K1 at 14, K2 at 14)."""
+    rng = np.random.RandomState(8)
+    readings, last = {}, None
+    for feats, rois, kw in calls["roi_align"]:
+        p = kw["out_size"]
+        readings[str(p)], (codes, g) = roi_reading(
+            dev, feats, rois, kw, f"{path} RoIAlign {p}x{p}", rng)
+        if p == 14:
+            last = (feats, rois, kw, codes, g)
+    if set(readings) != {"7", "14"}:
+        raise AssertionError(f"{path}: RoIAlign calls {sorted(readings)}")
+    k1, k2 = roi_bounds(*last, readings["14"])
+    line = (f"{path}: K2 at 14x14 on {readings['14']['shape'][1]} fg rois an "
+            f"image {readings['14']['ms']:.4f} ms (busiest tile "
+            f"{readings['14']['busiest_tile_rois']} rois, mean "
+            f"{readings['14']['mean_tile_rois']:.2f}), at 7x7 on the step's "
+            f"{readings['7']['shape'][1]} rois {readings['7']['ms']:.4f} ms "
+            f"(busiest {readings['7']['busiest_tile_rois']})")
+    if bwd_sets:
+        line += (f"; time_bwd_sets in this call: mixed "
+                 f"{bwd_sets['mixed float32']:.4f} ms, identical "
+                 f"{bwd_sets['identical float32']:.4f} ms")
+    log(line)
+    log(f"{path} 14x14: K1 with codes {k1['ms']:.4f} ms (plain "
+        f"{k1['plain_ms']:.4f}, bound {k1['bound_ms']:.6f}, {k1['bound_by']});"
+        f" K2 {k2['ms']:.4f} ms (plain {k2['plain_ms']:.4f}, bound "
+        f"{k2['bound_ms']:.6f}, {k2['bound_by']})")
+    return readings, k1, k2
+
+
+def mask_phases(dev, smi, bwd_sets):
+    """Phases I and J: serve and train config/mask_r50v1_fpn_1x.py at full
+    width (fp32, TF32 off); the mask targets, K1 and K2 at 14 x 14 on the
+    training step's own inputs."""
+    out = {}
+    with phase("I serving_mask"):
+        out["serving"] = serve_mask(dev, smi)
+    with phase("J training_mask"):
+        out["training"] = train(dev, smi, CONFIG_MASK, "training_mask",
+                                profile=True, record=True)
+        calls = out["training"][3].pop("calls")
+        log(f"training_mask: one step's kernel calls {by_size(calls)}")
+        from simpledet_torch.train import (synthetic_gt_poly,
+                                           synthetic_train_batch)
+
+        gt_poly = synthetic_gt_poly(synthetic_train_batch(B, H, W, 0)[2])
+        out["targets"] = mask_target_reading(calls, gt_poly.to(dev))
+        out["roi"] = mask_roi_kernels(dev, calls, bwd_sets, "training_mask")
+    return out
+
+
+def check_segm_json(path, roidb):
+    """The eval CLI's result json: each detection's segmentation a COCO
+    compressed RLE of its image's size. Returns the detection count."""
+    from simpledet_torch.data.rle import decode_rle
+
+    hw = {r["im_id"]: (r["h"], r["w"]) for r in roidb}
+    with open(path) as f:
+        dets = json.load(f)
+    for d in dets:
+        seg = d["segmentation"]
+        if not isinstance(seg["counts"], str) or \
+                decode_rle(seg).shape != hw[d["image_id"]]:
+            raise AssertionError(f"{path}: {seg['size']} is not COCO RLE of "
+                                 f"image {d['image_id']}")
+    return len(dets)
+
+
+def mask_cli_phase(dev, smi):
+    """Phase K, in a fresh temporary directory: an ellipse-polygon
+    micro-COCO (`data/synthetic.py`, 8 images) through the train CLI on
+    config/converge_mask.py (SyncBN from scratch: CLI_MASK_EPOCHS epochs of
+    its 8 images and their flips at batch 8, 2 an epoch, polygons through
+    the loader) and
+    simpledet_torch.mask_test on its checkpoint and running statistics:
+    finite losses with a mask loss, bbox and segm summaries of 12 finite
+    numbers, detections in the result json as COCO RLE. (The FrozenBN
+    config/mask_micro_test.py diverges from seeded weights within three
+    steps, as the flagship's micro config does without a pretrain.)"""
+    import tempfile
+
+    from simpledet_torch import detection_train, mask_test
+    from simpledet_torch.core.config import read_config
+    from simpledet_torch.data.roidb import load_roidb
+    from simpledet_torch.data.synthetic import make_micro_dataset
+
+    cwd, saved = os.getcwd(), dict(os.environ)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mask_cli_")
+    try:
+        os.chdir(tmp)
+        os.makedirs("config")
+        shutil.copyfile(os.path.join(REPO, CONFIG_CONVERGE_MASK),
+                        CONFIG_CONVERGE_MASK)
+        make_micro_dataset(os.path.join(tmp, "ellipse"), n_images=8,
+                           set_names=("converge_train",), shapes="ellipse")
+        os.environ.update(CONVERGE_DATA_ROOT=os.path.join(tmp, "ellipse"),
+                          CONVERGE_MASK_BATCH="8",
+                          CONVERGE_MASK_EPOCHS=str(CLI_MASK_EPOCHS))
+        history = []
+        zero_counts()
+        detection_train.train_net(CONFIG_CONVERGE_MASK, device=dev,
+                                  loss_history=history, seed=0)
+        torch.cuda.synchronize()
+        train_counts = read_counts("train_cli_mask", (
+            "nms", "roi_align_fwd", "roi_align_bwd"))
+        if len(history) != 2 * CLI_MASK_EPOCHS or not all(
+                "mask_loss" in h and np.isfinite(list(h.values())).all()
+                for h in history):
+            raise AssertionError(f"mask train CLI losses: {history}")
+        stats = {}
+        zero_counts()
+        summaries = mask_test.mask_test_net(CONFIG_CONVERGE_MASK, device=dev,
+                                            stats=stats)
+        torch.cuda.synchronize()
+        eval_counts = read_counts("mask_test_cli", ("nms", "roi_align_fwd"))
+        if summaries is None or any(
+                list(v) != SUMMARY_KEYS or not all(np.isfinite(list(
+                    v.values()))) for v in summaries.values()):
+            raise AssertionError(f"mask_test summaries {summaries}")
+        spec = read_config(CONFIG_CONVERGE_MASK)
+        roidb = load_roidb(spec.dataset.image_set, spec.dataset.cache_dir)
+        n_det = check_segm_json(os.path.join(
+            "experiments", spec.name,
+            spec.dataset.image_set[0] + "_segm_result.json"), roidb)
+        if not n_det:
+            raise AssertionError("mask_test wrote no detections")
+        log(f"mask CLIs: {len(history)} train iterations, total losses "
+            f"{[round(h['total_loss'], 4) for h in history]}; mask_test "
+            f"{stats['images']} images at {stats['img_per_s']:.2f} img/s on "
+            f"{smi}, {n_det} detections in COCO RLE; bbox "
+            f"{json.dumps(summaries['bbox'])}; segm "
+            f"{json.dumps(summaries['segm'])}")
+    finally:
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return train_counts, eval_counts, stats
+
+
 # ---------------------------------------------------- phases A, B and C
 
 CONFIG_SYNC = "config/flagship_synth_curve.py"
 CONFIG_CONVERGE = "config/converge_test.py"
 CONFIG_CONVERGE_CASCADE = "config/converge_cascade.py"
+CONFIG_CONVERGE_MASK = "config/converge_mask.py"
 N_SYNTH_IMAGES = 4          # 800 x 1200 and 1200 x 800 in turn
 CONVERGE_EPOCHS = 100       # 16 images and their flips at batch 8: 4 an epoch
 CONVERGE_CASCADE_EPOCHS = 120                   # 480 steps, the JAX record's
+CONVERGE_MASK_EPOCHS = 120                      # 480 steps, the JAX record's
 # the JAX package's records (the cascade's: experiments/converge_curve.md:65)
 JAX_CONVERGE = dict(AP=0.937, AP50=1.000, AP75=1.000, chip="one TPU v5e chip")
 JAX_CONVERGE_CASCADE = dict(AP=1.000, AP50=1.000, AP75=1.000, first20=1.94,
                             last20=0.10, chip="one TPU chip")
+# experiments/converge_curve.md:66 (480 steps, ellipse masks)
+JAX_CONVERGE_MASK = dict(bbox_AP=0.960, segm_AP=0.934, segm_AP75=1.000,
+                         first20=2.57, last20=0.09, chip="one TPU chip")
 SUMMARY_KEYS = ["AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
                 "AR100", "ARs", "ARm", "ARl"]
 
@@ -1509,22 +1807,29 @@ def in_workdir(root):
                                                 make_synth_coco)
 
     os.makedirs(os.path.join(root, "config"))
-    for cfg in (CONFIG_SYNC, CONFIG_CONVERGE, CONFIG_CONVERGE_CASCADE):
+    for cfg in (CONFIG_SYNC, CONFIG_CONVERGE, CONFIG_CONVERGE_CASCADE,
+                CONFIG_CONVERGE_MASK):
         shutil.copyfile(os.path.join(REPO, cfg), os.path.join(root, cfg))
     make_synth_coco(os.path.join(root, "synth"), n_images=N_SYNTH_IMAGES)
     make_micro_dataset(os.path.join(root, "converge"), n_images=16,
                        set_names=("converge_train",))
+    # converge_mask reads CONVERGE_DATA_ROOT too: phase L points it here
+    make_micro_dataset(os.path.join(root, "converge_ellipse"), n_images=16,
+                       set_names=("converge_train",), shapes="ellipse")
     os.environ.update(FLAGSHIP_SYNTH_ROOT=os.path.join(root, "synth"),
                       FLAGSHIP_CURVE_EPOCHS="1",
                       CONVERGE_DATA_ROOT=os.path.join(root, "converge"),
                       CONVERGE_BATCH="8",
                       CONVERGE_EPOCHS=str(CONVERGE_EPOCHS),
                       CONVERGE_CASCADE_BATCH="8",
-                      CONVERGE_CASCADE_EPOCHS=str(CONVERGE_CASCADE_EPOCHS))
+                      CONVERGE_CASCADE_EPOCHS=str(CONVERGE_CASCADE_EPOCHS),
+                      CONVERGE_MASK_BATCH="8",
+                      CONVERGE_MASK_EPOCHS=str(CONVERGE_MASK_EPOCHS))
     os.chdir(root)
     log(f"synthetic data: {N_SYNTH_IMAGES} COCO-shaped images for "
         f"{CONFIG_SYNC}, 16 micro images for {CONFIG_CONVERGE} and "
-        f"{CONFIG_CONVERGE_CASCADE}")
+        f"{CONFIG_CONVERGE_CASCADE}, 16 ellipse images for "
+        f"{CONFIG_CONVERGE_MASK}")
 
 
 def train_syncbn(dev, smi):
@@ -1807,7 +2112,7 @@ def converge(dev, smi, config=CONFIG_CONVERGE, path="converge",
     batch = next(iter(Loader(roidb, from_config(spec.transform), 8,
                              shuffle=False, num_workers=0)))
     kernels = converge_kernels(dev, trainer, batch)
-    cascade = stage_count(trainer.model) > 1
+    cascade = hasattr(trainer.model, "heads")
     if cascade:
         # the checkpoint on disk is what the test CLI evaluates
         with recording() as calls:
@@ -1840,8 +2145,92 @@ def converge(dev, smi, config=CONFIG_CONVERGE, path="converge",
     return train_counts, eval_counts, kernels, result
 
 
-def syncbn_phases(dev, smi):
-    """Phases A, B, C and H in a fresh temporary directory, removed
+def converge_mask(dev, smi, bwd_sets):
+    """Phase L: config/converge_mask.py (depth-18 FPN, SyncBN, 4 classes,
+    the mask branch at 14 x 14 / 28 x 28) from scratch at batch 8 for
+    CONVERGE_MASK_EPOCHS epochs (480 steps) on 16 ellipse images and their
+    flips through the train CLI's train_net; the box RoIAlign and NMS at its
+    shapes (`converge_kernels`); K1 and K2 at 7 x 7 and 14 x 14 on one more
+    step of the trained model, whose fg rois cluster on the gt boxes
+    (`mask_roi_kernels`); then simpledet_torch.mask_test on the train set.
+    The gates of the JAX package's tests/test_converge_mask.py: finite
+    losses, last-20 mean under half the first-20, box AP >= 0.6, segm AP >=
+    0.6, segm AP50 >= 0.95; read beside the JAX record."""
+    from simpledet_torch import detection_train, mask_test
+    from simpledet_torch.core.config import read_config
+    from simpledet_torch.data.loader import Loader
+    from simpledet_torch.data.roidb import load_roidb
+    from simpledet_torch.data.transforms import from_config
+
+    record = JAX_CONVERGE_MASK
+    history = []
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = detection_train.train_net(CONFIG_CONVERGE_MASK, device=dev,
+                                        loss_history=history)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_counts = read_counts("converge_mask", (
+        "nms", "roi_align_fwd", "roi_align_bwd"))
+    total = np.array([h["total_loss"] for h in history])
+    first, last = float(total[:20].mean()), float(total[-20:].mean())
+    log(f"converge_mask: {len(total)} steps at batch 8 in {seconds:.1f} s "
+        f"(incl. start-up, loader and logging) on {smi}; mean total loss "
+        f"first 20 {first:.4f}, last 20 {last:.4f} (the JAX record: "
+        f"{record['first20']:.2f}, {record['last20']:.2f}); mask loss first "
+        f"20 {np.mean([h['mask_loss'] for h in history[:20]]):.4f}, last 20 "
+        f"{np.mean([h['mask_loss'] for h in history[-20:]]):.4f}")
+    if len(total) != 4 * CONVERGE_MASK_EPOCHS or not np.isfinite(total).all():
+        raise AssertionError(f"converge_mask: {len(total)} steps, finite "
+                             f"{bool(np.isfinite(total).all())}")
+
+    spec = read_config(CONFIG_CONVERGE_MASK, is_train=True)
+    roidb = load_roidb(spec.dataset.image_set, spec.dataset.cache_dir)
+    batch = next(iter(Loader(roidb, from_config(spec.transform), 8,
+                             shuffle=False, num_workers=0,
+                             keys=("data", "im_info", "gt_bbox",
+                                   "gt_poly"))))
+    kernels = converge_kernels(dev, trainer, batch)
+    # the checkpoint on disk is what mask_test evaluates
+    with recording() as calls:
+        trainer.step(batch["data"], batch["im_info"], batch["gt_bbox"],
+                     batch["gt_poly"])
+    torch.cuda.synchronize()
+    readings, k1, k2 = mask_roi_kernels(dev, calls, bwd_sets,
+                                        "converge_mask (trained)")
+    kernels["roi_align_fwd"]["trained_14"] = k1
+    kernels["roi_align_bwd"]["trained_14"] = dict(k2, **{
+        k: readings["14"][k] for k in ("busiest_tile_rois", "mean_tile_rois",
+                                       "tiles_met", "shape")})
+    kernels["roi_align_bwd"]["trained_7"] = readings["7"]
+
+    stats = {}
+    zero_counts()
+    summaries = mask_test.mask_test_net(CONFIG_CONVERGE_MASK, device=dev,
+                                        stats=stats)
+    torch.cuda.synchronize()
+    eval_counts = read_counts("converge_mask_eval", ("nms", "roi_align_fwd"))
+    box, segm = summaries["bbox"], summaries["segm"]
+    log(f"converge_mask eval: {stats['images']} images at batch "
+        f"{stats['batch']}; box AP {box['AP']:.3f}, segm AP "
+        f"{segm['AP']:.3f}, AP50 {segm['AP50']:.3f}, AP75 {segm['AP75']:.3f}"
+        f" (the JAX package's record, {record['chip']}, 480 steps: box AP "
+        f"{record['bbox_AP']:.3f}, segm AP {record['segm_AP']:.3f}, segm "
+        f"AP75 {record['segm_AP75']:.3f})")
+    gates = {"last 20 < first 20 / 2": last < 0.5 * first,
+             "box AP >= 0.6": box["AP"] >= 0.6,
+             "segm AP >= 0.6": segm["AP"] >= 0.6,
+             "segm AP50 >= 0.95": segm["AP50"] >= 0.95}
+    if not all(gates.values()):
+        raise AssertionError(f"converge_mask gates failed: {gates}")
+    result = dict(steps=len(total), first20=first, last20=last,
+                  seconds=seconds, bbox_AP=box["AP"], segm_AP=segm["AP"],
+                  segm_AP50=segm["AP50"], segm_AP75=segm["AP75"])
+    return train_counts, eval_counts, kernels, result
+
+
+def syncbn_phases(dev, smi, bwd_sets):
+    """Phases A, B, C, H and L in a fresh temporary directory, removed
     afterwards."""
     import tempfile
 
@@ -1860,6 +2249,10 @@ def syncbn_phases(dev, smi):
             out["converge_cascade"] = converge(
                 dev, smi, CONFIG_CONVERGE_CASCADE, "converge_cascade",
                 CONVERGE_CASCADE_EPOCHS, JAX_CONVERGE_CASCADE)
+        with phase("L converge_mask"):
+            os.environ["CONVERGE_DATA_ROOT"] = os.path.join(
+                tmp, "converge_ellipse")
+            out["converge_mask"] = converge_mask(dev, smi, bwd_sets)
     finally:
         os.chdir(cwd)
         os.environ.clear()
@@ -1915,7 +2308,21 @@ def main():
         f"{ms_img_cascade:.3f} ms/image against {ms_img:.3f} "
         f"({ms_img_cascade / ms_img:.2f}x), serving_cascade_r101 "
         f"{ms_img_r101:.3f} ms/image; on {smi}")
-    sync = syncbn_phases(dev, smi)
+    mask = mask_phases(dev, smi, bwd_sets)
+    (paths["serving_mask"], ms_img_mask, mask_request,
+     at_mask_serving) = mask["serving"]
+    (paths["training_mask"], ms_step_mask, split_mask,
+     profile_mask) = mask["training"]
+    k2_mask_sizes, k1_mask14, k2_mask14 = mask["roi"]
+    log(f"training_mask: {ms_step_mask:.3f} ms/step against the flagship "
+        f"fp32 step of this call {ms_step:.3f} ms/step "
+        f"({ms_step_mask / ms_step:.2f}x); serving_mask {ms_img_mask:.3f} "
+        f"ms/image against {ms_img:.3f} ({ms_img_mask / ms_img:.2f}x); "
+        f"on {smi}")
+    with phase("K mask train and eval CLIs"):
+        paths["train_cli_mask"], paths["mask_test_cli"], mask_eval_stats = \
+            mask_cli_phase(dev, smi)
+    sync = syncbn_phases(dev, smi, bwd_sets)
     paths["training_syncbn"], ms_step_sync, split_sync, _ = \
         sync["training_syncbn"]
     paths["train_cli_syncbn"], paths["eval_cli_syncbn"] = sync["cli"]
@@ -1923,6 +2330,8 @@ def main():
      converge_result) = sync["converge"]
     (paths["converge_cascade"], paths["converge_cascade_eval"],
      at_converge_cascade, converge_cascade_result) = sync["converge_cascade"]
+    (paths["converge_mask"], paths["converge_mask_eval"], at_converge_mask,
+     converge_mask_result) = sync["converge_mask"]
     log(f"training_syncbn: {ms_step_sync:.3f} ms/step "
         f"({B * 1e3 / ms_step_sync:.2f} img/s) against the FrozenBN bf16 "
         f"step of this call {ms_step_bf16:.3f} ms/step "
@@ -1943,7 +2352,9 @@ def main():
              converge=at_converge["nms"],
              cascade_serving=at_cascade_serving["nms"],
              cascade_r101_serving=at_r101["nms"],
-             converge_cascade=at_converge_cascade["nms"]),
+             converge_cascade=at_converge_cascade["nms"],
+             mask_serving=at_mask_serving["nms"],
+             converge_mask=at_converge_mask["nms"]),
         dict(name="roi_align_fwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:267",
              **launches("roi_align_fwd"),
@@ -1955,7 +2366,11 @@ def main():
              converge=at_converge["roi_align_fwd"],
              cascade_serving_stage3=at_cascade_serving["roi_align_fwd"],
              cascade_training_stage3=k1_stage3,
-             converge_cascade=at_converge_cascade["roi_align_fwd"]),
+             converge_cascade=at_converge_cascade["roi_align_fwd"],
+             mask_serving_14=at_mask_serving["roi_align_fwd"],
+             mask_training_14=k1_mask14,
+             mask_launches_a_request=mask_request,
+             converge_mask=at_converge_mask["roi_align_fwd"]),
         dict(name="roi_align_bwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:351",
              **launches("roi_align_bwd"),
@@ -1966,7 +2381,13 @@ def main():
              bf16=bwd["bfloat16"], converge=at_converge["roi_align_bwd"],
              cascade_training_stage3=k2_stage3,
              cascade_training_by_stage=k2_by_stage,
-             converge_cascade=at_converge_cascade["roi_align_bwd"]),
+             converge_cascade=at_converge_cascade["roi_align_bwd"],
+             mask_training_14=dict(k2_mask14, **{
+                 k: k2_mask_sizes["14"][k] for k in (
+                     "busiest_tile_rois", "mean_tile_rois", "tiles_met",
+                     "shape")}),
+             mask_training_7=k2_mask_sizes["7"],
+             converge_mask=at_converge_mask["roi_align_bwd"]),
     ]
     log(json.dumps({"serving_ms_per_image": ms_img,
                     "training_ms_per_step": ms_step,
@@ -1990,6 +2411,15 @@ def main():
                     "serving_cascade_r101_ms_per_image": ms_img_r101,
                     "converge_cascade": converge_cascade_result,
                     "converge_cascade_jax_record": JAX_CONVERGE_CASCADE,
+                    "serving_mask_ms_per_image": ms_img_mask,
+                    "training_mask_ms_per_step": ms_step_mask,
+                    "training_mask_img_per_s": B * 1e3 / ms_step_mask,
+                    "training_mask_split_ms": split_mask,
+                    "training_mask_profile": profile_mask,
+                    "training_mask_targets": mask["targets"],
+                    "mask_test_cli_img_per_s": mask_eval_stats["img_per_s"],
+                    "converge_mask": converge_mask_result,
+                    "converge_mask_jax_record": JAX_CONVERGE_MASK,
                     "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,8 +6,10 @@
 Runs the test path stage by stage (normalise, backbone + FPN, RPN head,
 proposals, RoIAlign, box head + decode, per-class NMS; for a Cascade R-CNN
 config, RoIAlign and box head + refine of each of its three stages, then the
-score averaging over the three heads), timing each stage with
-CUDA events over `count` requests, then traces `count` whole requests with
+score averaging over the three heads; for a Mask R-CNN config, then the mask
+RoIAlign on the kept boxes and the mask head with its sigmoid; pasting the
+masks into the image is eval work, outside the request), timing each stage
+with CUDA events over `count` requests, then traces `count` whole requests with
 torch.profiler for the device's busy share and the top kernels by device time.
 Prints one JSON object with the card's name and power limit and how the
 config computes (fp32 without TF32, or bf16 with fp32 islands), as the infer
@@ -23,6 +25,7 @@ from simpledet_torch.eval.postprocess import per_class_nms
 from simpledet_torch.infer import (Detector, card_name_and_power, full_fp32,
                                    precision, synthetic_batch)
 from simpledet_torch.models.cascade_rcnn import STAGES, CascadeRcnn
+from simpledet_torch.models.mask_rcnn import PROFILER_RANGES, MaskFasterRcnn
 from simpledet_torch.ops.image import device_normalize
 
 
@@ -81,22 +84,34 @@ def stages(det, images, im_info):
         st["score"], st["boxes"] = m.predict(cls, delta, st["props"], im_info)
 
     def nms():
-        return per_class_nms(st["score"], st["boxes"],
-                             score_thr=det.score_thr, nms_thr=det.nms_thr,
-                             max_det=det.max_det)
+        st["post"] = per_class_nms(st["score"], st["boxes"],
+                                   score_thr=det.score_thr,
+                                   nms_thr=det.nms_thr, max_det=det.max_det)
+        return st["post"]
+
+    def mask_roi_align():
+        st["mask_feat"] = m.extract_mask_rois(st["pyr"], st["post"][0])
+
+    def mask_head():
+        return (*st["post"], m.mask_probs(st["mask_feat"], st["post"][2]))
 
     middle = (cascade_stages(m, st, im_info) if isinstance(m, CascadeRcnn)
               else [("roi_align", roi_align), ("box_head", head)])
+    masks = ([("mask_roi_align", mask_roi_align), ("mask_head", mask_head)]
+             if isinstance(m, MaskFasterRcnn) else [])
     return [("normalize", norm), ("backbone_fpn", pyramid),
             ("rpn_head", rpn_head), ("proposals", proposals), *middle,
-            ("per_class_nms", nms)]
+            ("per_class_nms", nms), *masks]
 
 
 def device_profile(fn, count, top=15):
     """Trace `count` calls of fn with torch.profiler: (host ms per call,
     device busy ms per call, {kernel: device ms per call} of the `top`
-    kernels). Device-side events only (kernels, copies): an operator's row
-    repeats the device time of the kernels it launched."""
+    kernels, {profiler range: device ms per call of the kernels launched
+    inside it} for the model's ranges that the calls entered
+    (`models/mask_rcnn.py::PROFILER_RANGES`)). Device-side events only
+    (kernels, copies): an operator's row repeats the device time of the
+    kernels it launched."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act, acc_events=True) as prof:
@@ -105,14 +120,20 @@ def device_profile(fn, count, top=15):
             fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / count
+    # a profiler range also shows as a device-side span over its kernels:
+    # not a kernel
     kernels = sorted(
         (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.key not in PROFILER_RANGES),
         key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / count
+    ranges = {e.key: e.device_time_total / 1e3 / count
+              for e in prof.key_averages() if e.key in PROFILER_RANGES
+              and e.device_type == torch.autograd.DeviceType.CPU}
     return traced_ms, busy_ms, {
         e.key[:80]: e.self_device_time_total / 1e3 / count
-        for e in kernels[:top]}
+        for e in kernels[:top]}, ranges
 
 
 @torch.no_grad()
@@ -150,7 +171,7 @@ def main(argv=None):
     wall = (time.perf_counter() - t0) * 1e3 / args.count
     stage_ms = {k: v / args.count for k, v in total.items()}
 
-    traced_ms, busy_ms, top = device_profile(
+    traced_ms, busy_ms, top, _ = device_profile(
         lambda: det.detect(images, im_info), args.count)
     print(json.dumps({
         "card": card_name_and_power(), "shape": [h, w], "batch": args.batch,

@@ -10,10 +10,11 @@ leaf an ExtType 1 whose payload is the msgpack array (shape, dtype name,
 C-order bytes). This module reads and writes that format with a small
 msgpack codec of its own (`packb`, `unpackb`) for exactly the types it
 holds: maps, arrays, str, bin, ext, ints, floats and nil; anything else
-raises. Names go through `weights.flax_path`:
-a conv kernel is HWIO there and OIHW here, a Dense kernel [in, out] is a
-Linear weight [out, in], and FrozenBN's scale and bias (buffers here) are
-params there.
+raises. Names go through `weights.flax_path` and layouts through
+`weights.flax_leaf`: a conv kernel is HWIO there and OIHW here (the mask
+head's transposed conv: flipped, [in, out, kh, kw] here), a Dense kernel
+[in, out] is a Linear weight [out, in], and FrozenBN's scale and bias
+(buffers here) are params there.
 
 SyncBN's running statistics go in `<prefix>-%04d.batch_stats`, the JAX
 package's `batch_stats` collection in the same format. Only rank 0 writes.
@@ -32,7 +33,8 @@ import torch
 
 from simpledet_torch.models.norm import batch_stat_names
 from simpledet_torch.parallel.dist import rank
-from simpledet_torch.weights import convert_leaf, flax_path, from_flax
+from simpledet_torch.weights import (convert_leaf, flax_leaf, flax_path,
+                                     from_flax)
 
 _NDARRAY_EXT = 1     # flax.serialization's ExtType code for an ndarray
 
@@ -261,9 +263,7 @@ def _tree(items):
     Flax names and layouts, keys sorted as JAX orders a dict."""
     tree = {}
     for name, t in sorted(items, key=lambda kv: flax_path(kv[0]).split("/")):
-        v = t.detach().to("cpu", torch.float32).numpy()
-        if name.endswith(".weight"):
-            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+        v = flax_leaf(name, t.detach().to("cpu", torch.float32).numpy())
         *mods, leaf = flax_path(name).split("/")
         node = tree
         for m in mods:

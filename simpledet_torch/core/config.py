@@ -11,15 +11,21 @@ arguments, and Norm2DImage's mean and std. A config built on the JAX
 package's config factories (`from simpledet_tpu.config_templates import
 faster_fpn_config`)
 gets the port's copy of that module, `simpledet_torch/config_templates.py`,
-which runs against the same stand-ins; any other import of `simpledet_tpu`
-raises NotImplementedError naming the module. `read_config` restores
+which runs against the same stand-ins; a config that imports the JAX
+package's `simpledet_tpu.data.transforms` (the mask configs' test chain)
+gets the port's `simpledet_torch/data/transforms.py` itself, whose transforms
+it then builds as they are; any other import of `simpledet_tpu` raises
+NotImplementedError naming the module. `read_config` restores
 `sys.modules` afterwards and returns a `ConfigSpec` that `dsl.py` builds from:
 the test symbol's, or with is_train=True the train symbol's, with what the
 trainer, the loader and the CLIs read. The symbol's components are placed
 under the names of the detector's get_*_symbol arguments in the JAX DSL
-(`ROLES`: `bbox_head_2nd` and `bbox_head_3rd` for CascadeRcnn), every one
-of them; a detector without roles there, an argument given by keyword, or
-a component that has no role raises NotImplementedError.
+(`ROLES`: `bbox_head_2nd` and `bbox_head_3rd` for CascadeRcnn,
+`mask_roi_extractor`, `mask_head` and `bbox_post_processor` for
+MaskFasterRcnn), every one of them, each with every param class it was
+given (`MaskFasterRcnn4ConvHead(BboxParam, MaskParam, MaskRoiParam)`); a
+detector without roles there, an argument given by keyword, or a component
+that has no role raises NotImplementedError.
 
 `patch_config_as_nothrow` and `load_config` are copies of the JAX package's
 (`simpledet_tpu/core/config.py`): a missing attribute on a config class reads
@@ -139,8 +145,11 @@ class Norm2DImage(Recorded):
 
 
 _SHIM_ROOTS = ("symbol", "models", "mxnext", "core")
+# the mask configs take Norm2DImage from models.maskrcnn.input: without it
+# there, read_config would find no pixel normalisation
 _SPECIAL = {"mxnext.complicate": {"normalizer_factory": Normalizer},
-            "core.detection_input": {"Norm2DImage": Norm2DImage}}
+            "core.detection_input": {"Norm2DImage": Norm2DImage},
+            "models.maskrcnn.input": {"Norm2DImage": Norm2DImage}}
 
 
 def _stand_in_module(modname):
@@ -167,12 +176,16 @@ def _stand_in_module(modname):
 
 
 _TEMPLATES = "simpledet_tpu.config_templates"
+# modules of the JAX package served by the port's own module of that role
+_SERVED = {"simpledet_tpu.data.transforms": "simpledet_torch.data.transforms"}
+_BARE = ("simpledet_tpu", "simpledet_tpu.data")   # packages of those
 
 
 class _StandInFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
     """Imports any module under the shim roots as a stand-in, serves the JAX
-    package's config_templates from the port's copy, and refuses every other
-    module of the JAX package."""
+    package's config_templates from the port's copy and its data.transforms
+    by the port's module, and refuses every other module of the JAX
+    package."""
 
     def find_spec(self, fullname, path=None, target=None):
         root = fullname.split(".")[0]
@@ -180,9 +193,9 @@ class _StandInFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
             from simpledet_torch import config_templates
             return importlib.util.spec_from_file_location(
                 fullname, config_templates.__file__)
-        if fullname == root == "simpledet_tpu":
-            return importlib.machinery.ModuleSpec(fullname, self,
-                                                  is_package=True)
+        if fullname in _BARE or fullname in _SERVED:
+            return importlib.machinery.ModuleSpec(
+                fullname, self, is_package=fullname in _BARE)
         if root == "simpledet_tpu":
             raise NotImplementedError(
                 f"a config that imports {fullname} is not read by the port")
@@ -192,7 +205,9 @@ class _StandInFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
         return None
 
     def create_module(self, spec):
-        if spec.name == "simpledet_tpu":     # a bare package for the copy
+        if spec.name in _SERVED:
+            return importlib.import_module(_SERVED[spec.name])
+        if spec.name in _BARE:             # a bare package for the copies
             mod = types.ModuleType(spec.name)
             mod.__path__ = []
             return mod
@@ -214,6 +229,7 @@ class Component:
     name: str        # config-side class name, e.g. "MSRAResNet50V1FPN"
     param: Any       # its nothrow-patched param class, e.g. BackboneParam
     depth: Optional[int] = None   # a config subclass's `depth` override
+    params: tuple = ()   # every param class it was given, param first
 
 
 def _component(comp):
@@ -231,8 +247,9 @@ def _component(comp):
     if extra:
         raise NotImplementedError(f"{type(comp).__name__} overrides {extra} "
                                   f"of {base.__name__}: not ported")
-    return Component(base.__name__, patch_config_as_nothrow(comp.param),
-                     overrides.get("depth"))
+    params = tuple(patch_config_as_nothrow(a) for a in comp.args)
+    return Component(base.__name__, params[0] if params else None,
+                     overrides.get("depth"), params)
 
 
 @dataclass
@@ -269,6 +286,10 @@ ROLES = {
                    "bbox_head"),
     "CascadeRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
                     "bbox_head", "bbox_head_2nd", "bbox_head_3rd"),
+    # the train symbol takes the first seven, the test symbol all eight
+    "MaskFasterRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
+                       "mask_roi_extractor", "bbox_head", "mask_head",
+                       "bbox_post_processor"),
 }
 
 

@@ -30,9 +30,9 @@ from simpledet_torch.parallel import dist
 class Trainer:
     """A detector, its optimizer, its schedule and the samplers' generator.
 
-    model: a FasterRcnn or CascadeRcnn; schedule: step -> lr; fixed_param and
-    excluded_param: the freezing substrings; pixel_norm: (mean, std) for
-    uint8 batches; seed: the samplers' torch.Generator seed (plus the rank).
+    model: a FasterRcnn, CascadeRcnn or MaskFasterRcnn; schedule: step ->
+    lr; fixed_param and excluded_param: the freezing substrings; pixel_norm:
+    (mean, std) for uint8 batches; seed: the samplers' torch.Generator seed (plus the rank).
     `timer`, when set, is called with "forward", "backward" and "optimizer"
     as each phase of a step ends. `aux` holds the last step's detached aux
     outputs, for the metrics."""
@@ -103,17 +103,22 @@ class Trainer:
         if self.timer is not None:
             self.timer(phase)
 
-    def step(self, images, im_info, gt_bbox):
+    def step(self, images, im_info, gt_bbox, gt_poly=None):
         """images [B, H, W, 3] (uint8, or float already normalised),
-        im_info [B, 3], gt_bbox [B, G, 5] -> {loss name: detached scalar
-        tensor} with "total_loss", averaged over the process group; the
-        gradients stay in each parameter's .grad until the next step."""
+        im_info [B, 3], gt_bbox [B, G, 5] and, for a Mask R-CNN, the polygon
+        edges gt_poly [B, G, E, 5] -> {loss name: detached scalar tensor}
+        with "total_loss", averaged over the process group; the gradients
+        stay in each parameter's .grad until the next step."""
         data, im_info = self._inputs(images, im_info)
         gt_bbox = torch.as_tensor(gt_bbox, dtype=torch.float32).to(
             self.device)
+        kw = {}
+        if gt_poly is not None:
+            kw["gt_poly"] = torch.as_tensor(gt_poly, dtype=torch.float32).to(
+                self.device)
         self.optimizer.zero_grad(set_to_none=True)
         losses, aux = self.forward_model(data, im_info, gt_bbox, mode="train",
-                                         generator=self.generator)
+                                         generator=self.generator, **kw)
         self.aux = {k: v.detach() for k, v in aux.items()}
         total = sum(v.float() for v in losses.values())
         self._mark("forward")

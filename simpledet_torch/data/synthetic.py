@@ -14,6 +14,15 @@ import numpy as np
 from simpledet_torch.data.roidb import save_roidb
 
 
+def ellipse_polygon(x1, y1, x2, y2, n=16):
+    """[n, 2] float64 vertices of the ellipse inscribed in the box (x1, y1,
+    x2, y2), counter-clockwise in image coordinates from its right end."""
+    cx, cy = (x1 + x2) / 2.0, (y1 + y2) / 2.0
+    rx, ry = (x2 - x1) / 2.0, (y2 - y1) / 2.0
+    t = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    return np.stack([cx + rx * np.cos(t), cy + ry * np.sin(t)], 1)
+
+
 def make_micro_dataset(root, n_images=8, seed=0,
                        set_names=("micro_train", "micro_val"),
                        shapes="rect"):
@@ -48,12 +57,7 @@ def make_micro_dataset(root, n_images=8, seed=0,
             color = [(255, 64, 64), (64, 255, 64), (64, 64, 255)][cls - 1]
             x2, y2 = x1 + bw - 1, y1 + bh - 1
             if shapes == "ellipse":
-                cx, cy = (x1 + x2) / 2.0, (y1 + y2) / 2.0
-                rx, ry = (x2 - x1) / 2.0, (y2 - y1) / 2.0
-                t = np.linspace(0, 2 * np.pi, 16, endpoint=False)
-                vx = cx + rx * np.cos(t)
-                vy = cy + ry * np.sin(t)
-                poly = np.stack([vx, vy], 1)
+                poly = ellipse_polygon(x1, y1, x2, y2)
                 cv2.fillPoly(img, [np.round(poly).astype(np.int32)], color)
                 obj_polys.append([float(v) for v in poly.reshape(-1)])
             else:

@@ -10,7 +10,10 @@ Record keys: image [H, W, 3] RGB, gt_bbox [G, 5] (xyxy + class, -1 padded),
 im_info [h', w', scale], h, w, im_id, rec_id, flipped.
 
 `from_config` turns the transforms a config recorded (`core/config.py`'s
-stand-ins: a class name and its arguments) into these.
+stand-ins: a class name and its arguments) into these, or into the polygon
+transforms of `data/mask_transforms.py`; a transform that a config built
+from this module itself (the mask configs import it as the JAX package's
+`simpledet_tpu.data.transforms`) is taken as it is.
 """
 import numpy as np
 
@@ -173,13 +176,27 @@ TRANSFORMS = {cls.__name__: cls for cls in (
     Pad2DImageBbox, ConvertImageFromHwcToChw, RenameRecord)}
 
 
+def _registry():
+    """TRANSFORMS and the polygon transforms, by class name."""
+    from simpledet_torch.data import mask_transforms as mt
+
+    return dict(TRANSFORMS, **{cls.__name__: cls for cls in (
+        mt.PreprocessGtPoly, mt.Resize2DImageBboxMask, mt.Flip2DImageBboxMask,
+        mt.Pad2DImageBboxMask, mt.EncodeGtPoly)})
+
+
 def from_config(recorded):
     """The port's transforms for a config's recorded transform list (each
-    with `name`, `args` and `kwargs`); a transform not ported raises
-    NotImplementedError naming it."""
+    with `name`, `args` and `kwargs`, or a transform of this module that the
+    config built itself); a transform not ported raises NotImplementedError
+    naming it."""
+    registry = _registry()
     out = []
     for t in recorded:
-        cls = TRANSFORMS.get(t.name)
+        if isinstance(t, DetectionAugmentation):
+            out.append(t)
+            continue
+        cls = registry.get(t.name)
         if cls is None:
             raise NotImplementedError(f"transform {t.name!r} is not ported")
         out.append(cls(*t.args, **t.kwargs))

@@ -80,16 +80,10 @@ def detection_rows(boxes, scores, classes, valid, batch):
             for n in range(len(bi))]
 
 
-def test_net(config_path, max_images=None, *, device="cuda", stats=None):
-    """The COCO summary dict (None without an annotation file). stats, when
-    given, is a dict that gets the image count, the eval batch, seconds and
-    img/s of the forward-and-NMS loop."""
-    det = Detector(config_path, device=device, seed=0)
-    spec, t = det.spec, det.spec.test
-    _refuse_unported(t)
-    exp_dir = os.path.join("experiments", spec.name)
-    logger = config_logger(exp_dir)
-
+def eval_roidb(spec, max_images=None):
+    """The config's eval records: TestParam.process_roidb, the first
+    max_images, rec_id numbered."""
+    t = spec.test
     roidb = load_roidb(spec.dataset.image_set,
                        spec.dataset.cache_dir or "data/cache")
     roidb = t.process_roidb(roidb) if t.process_roidb else roidb
@@ -97,8 +91,15 @@ def test_net(config_path, max_images=None, *, device="cuda", stats=None):
         roidb = roidb[:max_images]
     for i, r in enumerate(roidb):
         r["rec_id"] = i
-    logger.info(f"evaluating {len(roidb)} images on {det.device}")
+    return roidb
 
+
+def restore(det, logger):
+    """Load TestParam.model's checkpoint (its epoch, or the newest) into the
+    Detector's model, and a SyncBN model's running statistics beside it;
+    warn and keep the seeded weights without one. Returns (whether the model
+    has SyncBN, whether its running statistics were loaded)."""
+    t = det.spec.test
     prefix = t.model.prefix
     epoch = t.model.epoch or get_latest_ckpt_epoch(prefix)
     syncbn = bool(batch_stat_names(det.model))
@@ -113,6 +114,21 @@ def test_net(config_path, max_images=None, *, device="cuda", stats=None):
                         "eval uses per-batch statistics")
     else:
         logger.info("WARNING: no checkpoint found, using random params")
+    return syncbn, has_stats
+
+
+def test_net(config_path, max_images=None, *, device="cuda", stats=None):
+    """The COCO summary dict (None without an annotation file). stats, when
+    given, is a dict that gets the image count, the eval batch, seconds and
+    img/s of the forward-and-NMS loop."""
+    det = Detector(config_path, device=device, seed=0)
+    spec, t = det.spec, det.spec.test
+    _refuse_unported(t)
+    exp_dir = os.path.join("experiments", spec.name)
+    logger = config_logger(exp_dir)
+    roidb = eval_roidb(spec, max_images)
+    logger.info(f"evaluating {len(roidb)} images on {det.device}")
+    syncbn, has_stats = restore(det, logger)
 
     eval_batch = int(t.batch_image or 4)
     if syncbn and not has_stats and not t.batch_image:
@@ -128,7 +144,7 @@ def test_net(config_path, max_images=None, *, device="cuda", stats=None):
     t0 = time.perf_counter()
     for batch in loader:
         out = det.detect(batch["data"], batch["im_info"], score_thr=score_thr)
-        detections += detection_rows(*out, batch)
+        detections += detection_rows(*out[:4], batch)
         n_done += int(np.asarray(batch["valid"]).sum())
     dt = time.perf_counter() - t0
     logger.info(f"inference done: {n_done} images in {dt:.1f}s "

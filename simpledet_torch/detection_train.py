@@ -7,7 +7,8 @@
         --config config/<name>.py [--device cpu]
 
 The flow is train_net's: the config's roidb, keeping the images with gt and
-appending their flips; the threaded loader with the config's own transforms,
+appending their flips; the threaded loader with the config's own transforms
+and label keys (a Mask R-CNN config's include gt_poly, the polygon edges),
 sharded by rank; the pretrain (`ModelParam.pretrain.prefix`, matched by Flax
 path and shape) unless the config trains from scratch, or with --resume the
 newest checkpoint and its SyncBN running statistics; the config's schedule,
@@ -156,10 +157,12 @@ def train_net(config_path, max_iter_override=None, auto_resume=False, *,
         logger.info(f"starting epoch {epoch}")
         for batch in loader:
             losses = trainer.step(batch["data"], batch["im_info"],
-                                  batch["gt_bbox"])
+                                  batch["gt_bbox"], batch.get("gt_poly"))
             steps_this_run += 1
-            metrics.update({k: v.cpu().numpy()
-                            for k, v in trainer.aux.items()})
+            # the metrics read the aux and the losses (ScalarLoss reads
+            # mask_loss), as train_net's do
+            metrics.update({k: v.cpu().numpy() for k, v in
+                            {**trainer.aux, **losses}.items()})
             if loss_history is not None:
                 loss_history.append({k: float(v) for k, v in losses.items()})
             if trainer.step_count % log_freq == 0:

@@ -5,7 +5,11 @@ A detector or component the port does not have raises NotImplementedError
 naming it. FasterRcnn takes one box head (`FPNBbox2fcHead`, class-specific
 regression unless its regress_target says class_agnostic); CascadeRcnn takes
 three `CascadeBbox2fcHead`s, one a stage, each class-agnostic unless its
-regress_target says otherwise (`simpledet_tpu/dsl.py:371`).
+regress_target says otherwise (`simpledet_tpu/dsl.py:371`); MaskFasterRcnn
+takes a box head, a second FPNRoiAlign for its mask branch, the
+`MaskFasterRcnn4ConvHead` built from its MaskParam (`dim_reduced`, fp32
+only) and the box head's class count, and at test time the
+BboxPostProcessor's TestParam.
 Each component computes in the dtype its param class asks for (`_dtype`:
 `fp16 = True` means bf16, as in the JAX package); parameters stay fp32. The
 backbone is normalised as its param class's normalizer says (`_norm`:
@@ -22,6 +26,7 @@ from simpledet_torch.models.cascade_rcnn import (CascadeRcnn,
 from simpledet_torch.models.faster_rcnn import FasterRcnn
 from simpledet_torch.models.fpn import FPNNeck
 from simpledet_torch.models.heads import Bbox2fcHead
+from simpledet_torch.models.mask_rcnn import MaskFasterRcnn, MaskHead4Conv
 from simpledet_torch.models.norm import normalizer_factory
 from simpledet_torch.models.resnet import ResNet
 from simpledet_torch.models.rpn import FPNRpnHead, RpnConvHead
@@ -36,7 +41,14 @@ SUPPORTED = {
     "CascadeRcnn": dict(_COMMON, bbox_head=_CASCADE_HEAD,
                         bbox_head_2nd=_CASCADE_HEAD,
                         bbox_head_3rd=_CASCADE_HEAD),
+    "MaskFasterRcnn": dict(_COMMON, rpn_head=("MaskFPNRpnHead",),
+                           mask_roi_extractor=("FPNRoiAlign",),
+                           bbox_head=("FPNBbox2fcHead",),
+                           mask_head=("MaskFasterRcnn4ConvHead",),
+                           bbox_post_processor=("BboxPostProcessor",)),
 }
+# roles that only the test symbol is given
+TEST_ONLY = ("bbox_post_processor",)
 
 
 def _dtype(p):
@@ -61,7 +73,7 @@ def _require(detector, comps):
         if comp.name not in roles.get(role, ()):
             raise NotImplementedError(f"{role} {comp.name!r} of {detector} "
                                       "is not ported yet")
-    missing = sorted(set(roles) - set(comps))
+    missing = sorted(set(roles) - set(comps) - set(TEST_ONLY))
     if missing:
         raise NotImplementedError(f"{detector} without {missing}")
 
@@ -71,10 +83,20 @@ def _box_head(p, in_features, class_agnostic):
     return Bbox2fcHead(p.num_class, num_reg, in_features, dtype=_dtype(p))
 
 
+def _mask_head(comp):
+    """MaskHead4Conv from MaskFasterRcnn4ConvHead(BboxParam, MaskParam,
+    MaskRoiParam): BboxParam's classes, MaskParam's width."""
+    p_bbox, p_mask = comp.params[:2]
+    if _dtype(p_mask) != torch.float32:
+        raise NotImplementedError("the bf16 mask head (MaskParam.fp16) is "
+                                  "not ported yet")
+    return MaskHead4Conv(p_bbox.num_class, 256, p_mask.dim_reduced or 256)
+
+
 def build_detector(spec, *, depth=None):
-    """FasterRcnn or CascadeRcnn (on the CPU, weights not yet initialised)
-    from a ConfigSpec. `depth` overrides the backbone's depth (tests use
-    18)."""
+    """FasterRcnn, CascadeRcnn or MaskFasterRcnn (on the CPU, weights not
+    yet initialised) from a ConfigSpec. `depth` overrides the backbone's
+    depth (tests use 18)."""
     comps = spec.components
     _require(spec.detector, comps)
 
@@ -101,6 +123,13 @@ def build_detector(spec, *, depth=None):
     p_bbox = comps["bbox_head"].param
     bbox_head = _box_head(p_bbox, in_features,
                           p_bbox.regress_target.class_agnostic or False)
+    if spec.detector == "MaskFasterRcnn":
+        post = comps.get("bbox_post_processor")
+        return MaskFasterRcnn(
+            backbone, neck, rpn_module, rpn, bbox_head,
+            _mask_head(comps["mask_head"]), p_roi, p_bbox,
+            comps["mask_head"].params[1], comps["mask_roi_extractor"].param,
+            post.param if post else None)
     return FasterRcnn(backbone, neck, rpn_module, rpn, bbox_head, p_roi,
                       p_bbox)
 

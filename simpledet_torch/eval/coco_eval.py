@@ -1,15 +1,18 @@
-"""COCO detection evaluation, bbox only: a copy of
-`simpledet_tpu/eval/coco_eval.py` without its segm path, kept in the port so
-that it imports nothing of the JAX package.
+"""COCO evaluation, bbox and segm: a copy of `simpledet_tpu/eval/coco_eval.py`,
+kept in the port so that it imports nothing of the JAX package.
 
 It implements the pycocotools COCOeval protocol (greedy score-ordered
 matching per (image, category) at IoU thresholds .5:.05:.95, crowd
 re-matching, explicit gt `ignore` flags, area-range ignores, 101-point
 interpolated AP, maxDets slicing) and reports the standard 12 metrics. The
-matcher is vectorized over the 10 thresholds.
+matcher is vectorized over the 10 thresholds. With iou_type="segm" the IoUs
+are those of binary masks (a crowd gt's IoU is the intersection over the
+detection's area) and a detection's area is its mask's.
 
-Detections: list of dicts {image_id, category_id, bbox [x,y,w,h], score}.
-Ground truth: a COCO-style dict or path (images/annotations/categories).
+Detections: list of dicts {image_id, category_id, bbox [x,y,w,h], score}
+and, for segm, `_mask`: its [h, w] binary mask in the image. Ground truth: a
+COCO-style dict or path (images/annotations/categories); for segm each
+annotation carries its binary `_mask` (`data/rle.py::segmentation_to_mask`).
 """
 import json
 
@@ -47,6 +50,22 @@ def box_iou_xywh(dt, gt, iscrowd):
     with np.errstate(divide="ignore", invalid="ignore"):
         ious = np.where(union > 0, inter / union, 0.0)
     return ious
+
+
+def mask_iou(dt_masks, gt_masks, iscrowd):
+    """[D, G] IoUs of binary masks; a crowd gt's: intersection / det area."""
+    ious = np.zeros((len(dt_masks), len(gt_masks)))
+    if not len(dt_masks) or not len(gt_masks):
+        return ious
+    dt = np.asarray([m.astype(bool).ravel() for m in dt_masks])
+    gt = np.asarray([m.astype(bool).ravel() for m in gt_masks])
+    inter = dt.astype(np.float64) @ gt.T.astype(np.float64)
+    darea = dt.sum(-1, dtype=np.float64)[:, None]
+    garea = gt.sum(-1, dtype=np.float64)[None, :]
+    crowd = np.asarray(iscrowd, bool)[None, :]
+    union = np.where(crowd, darea, darea + garea - inter)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / union, 0.0)
 
 
 def _last_argmax(vals):
@@ -99,10 +118,9 @@ def greedy_match(ious, g_ignore, iscrowd):
 
 class COCOEval:
     def __init__(self, gt, iou_type="bbox"):
-        """gt: COCO dict or json path."""
-        if iou_type != "bbox":
-            raise NotImplementedError(f"COCOEval iou_type {iou_type!r}: only "
-                                      "bbox is ported")
+        """gt: COCO dict or json path; iou_type "bbox" or "segm"."""
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"COCOEval iou_type {iou_type!r}")
         if isinstance(gt, str):
             with open(gt) as f:
                 gt = json.load(f)
@@ -117,6 +135,7 @@ class COCOEval:
                 "area": area,
                 "iscrowd": a.get("iscrowd", 0),
                 "ignore": int(a.get("ignore", 0)),
+                "_mask": a.get("_mask"),  # the binary mask, for segm
             })
 
     def evaluate(self, detections):
@@ -142,9 +161,16 @@ class COCOEval:
                     continue
                 iscrowd = np.array([int(g["iscrowd"]) for g in gt],
                                    dtype=np.int64)
-                ious = box_iou_xywh([d["bbox"] for d in dt],
-                                    [g["bbox"] for g in gt], iscrowd)
-                d_area = np.array([d["bbox"][2] * d["bbox"][3] for d in dt])
+                if self.iou_type == "bbox":
+                    ious = box_iou_xywh([d["bbox"] for d in dt],
+                                        [g["bbox"] for g in gt], iscrowd)
+                    d_area = np.array([d["bbox"][2] * d["bbox"][3]
+                                       for d in dt])
+                else:
+                    ious = mask_iou([d["_mask"] for d in dt],
+                                    [g["_mask"] for g in gt], iscrowd)
+                    d_area = np.array([d["_mask"].astype(bool).sum()
+                                       for d in dt], np.float64)
                 g_area = np.array([g["area"] for g in gt], dtype=np.float64)
                 g_ign0 = np.array([bool(g["iscrowd"]) or bool(g["ignore"])
                                    for g in gt], dtype=bool)

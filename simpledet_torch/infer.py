@@ -3,7 +3,9 @@
 Counterpart of `detection_infer_speed.py --include-nms`: builds the test
 detector from a config (seeded random weights), normalises uint8 NHWC batches
 on the device, runs the test forward and the per-class NMS, and returns
-boxes, scores and classes per image.
+boxes, scores and classes per image; a Mask R-CNN runs its NMS inside its
+test forward and adds each kept box's class's mask probabilities (pasting
+them into the image is eval work: `eval/segm.py`).
 
     python -m simpledet_torch.infer --config config/faster_r50v1_fpn_1x.py \
         --shape 800 1333 --batch 2 --count 20
@@ -19,6 +21,7 @@ import torch
 
 from simpledet_torch.dsl import detector_from_config
 from simpledet_torch.eval.postprocess import per_class_nms
+from simpledet_torch.models.mask_rcnn import MaskFasterRcnn
 from simpledet_torch.ops.image import device_normalize
 
 
@@ -34,29 +37,38 @@ class Detector:
         self.score_thr = t.min_det_score or 0.05
         self.nms_thr = (t.nms.thr if t.nms else None) or 0.5
         self.max_det = t.max_det_per_image or 100
+        self.has_masks = isinstance(self.model, MaskFasterRcnn)
 
     @torch.no_grad()
     def detect(self, images, im_info, *, score_thr=None):
         """images [B, H, W, 3] uint8, im_info [B, 3] = (h', w', scale) ->
         (boxes [B, max_det, 4], scores, classes, valid), padded rows
-        marked by valid = False."""
+        marked by valid = False; a Mask R-CNN adds mask_prob [B, max_det,
+        M, M]."""
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         im_info = torch.as_tensor(im_info, dtype=torch.float32).to(
             self.device, non_blocking=True)
         if self.spec.pixel_norm is not None:
             images = device_normalize(images, im_info, *self.spec.pixel_norm)
+        thr = self.score_thr if score_thr is None else score_thr
+        if self.has_masks:
+            out = self.model(images.float(), im_info, mode="test",
+                             score_thr=thr)
+            return (out["bbox_xyxy"], out["cls_score"], out["cls"],
+                    out["det_valid"], out["mask_prob"])
         out = self.model(images.float(), im_info, mode="test")
-        return per_class_nms(
-            out["cls_score"], out["bbox_xyxy"],
-            score_thr=self.score_thr if score_thr is None else score_thr,
-            nms_thr=self.nms_thr, max_det=self.max_det)
+        return per_class_nms(out["cls_score"], out["bbox_xyxy"],
+                             score_thr=thr, nms_thr=self.nms_thr,
+                             max_det=self.max_det)
 
     def __call__(self, images, im_info, **kw):
-        """List of per-image dicts {"boxes", "scores", "classes"} (valid rows
-        only, on the device)."""
-        boxes, scores, classes, valid = self.detect(images, im_info, **kw)
-        return [{"boxes": b[v], "scores": s[v], "classes": c[v]}
-                for b, s, c, v in zip(boxes, scores, classes, valid)]
+        """List of per-image dicts {"boxes", "scores", "classes"} and, for a
+        Mask R-CNN, "masks" (valid rows only, on the device)."""
+        out = self.detect(images, im_info, **kw)
+        valid = out[3]
+        names = ("boxes", "scores", "classes", None, "masks")
+        return [{n: t[i][valid[i]] for n, t in zip(names, out) if n}
+                for i in range(len(valid))]
 
 
 def full_fp32():
@@ -123,7 +135,8 @@ def main(argv=None):
     n_img = args.count * args.batch
     where = card_name_and_power() if det.device.type == "cuda" else "cpu"
     print(f"{dt / n_img * 1000:.3f} ms per image ({n_img / dt:.2f} img/s) "
-          f"at {h}x{w}, batch {args.batch}, incl. per-class NMS, "
+          f"at {h}x{w}, batch {args.batch}, incl. per-class NMS"
+          f"{' and the mask head' if det.has_masks else ''}, "
           f"{precision(det.model)}, on {where}")
 
 

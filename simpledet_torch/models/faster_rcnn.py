@@ -75,15 +75,17 @@ class FasterRcnn(nn.Module):
         x = data.permute(0, 3, 1, 2)            # channels_last view, no copy
         return self.neck(self.backbone(x))
 
-    def extract_rois(self, pyramid, rois):
-        """rois [B, R, 4] -> [B, R, P, P, C] from P2..P5."""
-        strides = tuple(self.p_roi.stride)
+    def extract_rois(self, pyramid, rois, p_roi=None):
+        """rois [B, R, 4] -> [B, R, P, P, C] from the levels of p_roi (the
+        box head's RoiParam unless another is given: a mask branch's)."""
+        p_roi = p_roi or self.p_roi
+        strides = tuple(p_roi.stride)
         feats = [pyramid[f"stride{s}"].permute(0, 2, 3, 1).contiguous()
                  for s in strides]
         return multilevel_roi_align(
-            feats, rois, strides, out_size=self.p_roi.out_size,
-            canonical_scale=self.p_roi.roi_canonical_scale or 224,
-            canonical_level=self.p_roi.roi_canonical_level or 4)
+            feats, rois, strides, out_size=p_roi.out_size,
+            canonical_scale=p_roi.roi_canonical_scale or 224,
+            canonical_level=p_roi.roi_canonical_level or 4)
 
     def predict(self, cls_logit, bbox_delta, rois, im_info):
         rt = self.p_bbox.regress_target
@@ -118,6 +120,12 @@ class FasterRcnn(nn.Module):
     def train_losses(self, data, im_info, gt_bbox, generator):
         """(losses, aux) with the JAX package's keys. The anchor targets,
         proposals and sampled rois carry no gradient."""
+        _, _, losses, aux = self.box_branch(data, im_info, gt_bbox, generator)
+        return losses, aux
+
+    def box_branch(self, data, im_info, gt_bbox, generator):
+        """The train forward up to the box head's losses: (the pyramid, the
+        proposal-target sample, losses, aux)."""
         if gt_bbox is None or generator is None:
             raise ValueError("train mode needs gt_bbox and a generator")
         det = self.deterministic_sampling
@@ -152,7 +160,7 @@ class FasterRcnn(nn.Module):
         losses.update(rpn_losses)
         aux = dict(rpn_aux, bbox_label=sample["label"],
                    bbox_cls_logit=cls_logit)
-        return losses, aux
+        return pyr, sample, losses, aux
 
     def init_weights(self, gen):
         for m in (self.backbone, self.neck, self.rpn_module, self.bbox_head):

@@ -6,7 +6,8 @@ schedule and frozen parameters, and trains it on synthetic uint8 images with
 20 random gt boxes per image (made as `bench.py` makes them, from --seed).
 Before the first step the backbone's FrozenBN buffers take the folded
 statistics of that batch (`Trainer.fold_batch_stats`), the stand-in for a
-pretrained checkpoint.
+pretrained checkpoint. A Mask R-CNN config's gt boxes each get the polygon
+of their inscribed ellipse (`synthetic_gt_poly`).
 
     python -m simpledet_torch.train --config config/faster_r50v1_fpn_1x.py \
         --shape 800 1333 --batch 2 --steps 20
@@ -18,6 +19,8 @@ prints each step's losses, then ms/step and img/s over the steps after the
 first two, and the forward / backward / optimizer split by CUDA events, with
 the card's name and power limit. On the card it then traces 3 more steps
 with torch.profiler and prints the device's idle share and its top kernels.
+For a Mask R-CNN the trace also gives the device time of the mask branch's
+profiler ranges (mask targets, mask RoIAlign, mask head).
 `python -m simpledet_torch.detection_train` trains on a roidb through the
 loader and writes checkpoints.
 """
@@ -31,10 +34,27 @@ import torch
 from simpledet_torch.breakdown import device_profile
 from simpledet_torch.core.train import Trainer
 from simpledet_torch.infer import card_name_and_power, full_fp32, precision
+from simpledet_torch.models.mask_rcnn import MaskFasterRcnn
 from simpledet_torch.parallel import dist
 
 WARMUP_STEPS = 2
 PROFILED_STEPS = 3
+
+
+def synthetic_gt_poly(gt, max_edges=1250):
+    """Polygon edges [B, G, max_edges, 5] for gt_bbox [B, G, 5]: each valid
+    box's inscribed ellipse as a 16-gon (`data/synthetic.py`), packed as
+    `EncodeGtPoly` packs a record's polygons (max_edges: the mask configs'
+    max_len_gt_poly 2500 // 2)."""
+    from simpledet_torch.data.mask_transforms import polys_to_edges
+    from simpledet_torch.data.synthetic import ellipse_polygon
+
+    gt = np.asarray(gt)
+    out = np.full(gt.shape[:2] + (max_edges, 5), -1, np.float32)
+    for b, i in zip(*np.nonzero(gt[..., 4] >= 0)):
+        poly = ellipse_polygon(*gt[b, i, :4]).astype(np.float32).reshape(-1)
+        out[b, i] = polys_to_edges([poly], max_edges)
+    return torch.from_numpy(out)
 
 
 def synthetic_train_batch(batch, h, w, seed, num_gt=20, max_num_gt=100):
@@ -99,8 +119,10 @@ def main(argv=None):
     on_card = trainer.device.type == "cuda"
     h, w = args.shape
     images, im_info, gt = synthetic_train_batch(args.batch, h, w, args.seed)
-    images = images.to(trainer.device)
-    trainer.fold_batch_stats(images, im_info)
+    batch = (images.to(trainer.device), im_info, gt)
+    if isinstance(trainer.model, MaskFasterRcnn):
+        batch += (synthetic_gt_poly(gt),)
+    trainer.fold_batch_stats(*batch[:2])
     timer = PhaseTimer() if on_card else None
     trainer.timer = timer
 
@@ -115,7 +137,7 @@ def main(argv=None):
             t0 = time.perf_counter()
         if timer is not None:
             timer.start()
-        losses = trainer.step(images, im_info, gt)
+        losses = trainer.step(*batch)
         sync()
         if timer is not None and i >= WARMUP_STEPS:
             timer.collect()
@@ -134,13 +156,14 @@ def main(argv=None):
                           for k, v in timer.totals.items()))
     if on_card:
         trainer.timer = None
-        traced_ms, busy_ms, top = device_profile(
-            lambda: trainer.step(images, im_info, gt), PROFILED_STEPS)
+        traced_ms, busy_ms, top, ranges = device_profile(
+            lambda: trainer.step(*batch), PROFILED_STEPS)
         print(json.dumps({
             "card": where, "traced_step_ms": traced_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / traced_ms),
-            "top_kernels_ms_per_step": top}, indent=1))
+            "top_kernels_ms_per_step": top,
+            "ranges_device_ms_per_step": ranges}, indent=1))
     dist.destroy()
 
 

@@ -4,6 +4,12 @@
 `jax.tree.map(np.asarray, variables["params"])`). Module names in the port
 follow the Flax names, so a leaf `a/b/kernel` becomes `a.b.weight`:
   - a conv kernel goes from HWIO to OIHW;
+  - a transposed conv's kernel (a module named in TRANSPOSED_CONVS: the
+    mask head's `mask_up`) goes from HWIO to torch's [in, out, kh, kw] and is
+    flipped in both spatial axes: Flax's `nn.ConvTranspose` (without
+    `transpose_kernel`) applies its kernel unflipped, torch's
+    `conv_transpose2d` flipped. The shapes match either way (`mask_up` has
+    as many inputs as outputs), so only the values show a missing flip;
   - a Dense kernel [in, out] becomes a Linear weight [out, in];
   - `bias` stays `bias`; FrozenBN `scale` / `bias` land on its buffers,
     SyncBN's `gamma` / `beta` and GroupNorm's `scale` / `bias` on their
@@ -20,6 +26,8 @@ import torch
 from simpledet_torch.models.norm import batch_stat_names, set_has_stats
 
 LEAVES = ("bias", "scale", "gamma", "beta", "mean", "var")
+# modules whose Flax kernel is an nn.ConvTranspose's
+TRANSPOSED_CONVS = ("mask_up",)
 
 
 def _flatten(tree, prefix=()):
@@ -35,7 +43,9 @@ def convert_leaf(path, value):
     """(torch name, tensor) for one Flax leaf."""
     *mods, leaf = path
     if leaf == "kernel":
-        if value.ndim == 4:
+        if value.ndim == 4 and mods and mods[-1] in TRANSPOSED_CONVS:
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)
         elif value.ndim == 2:
             value = value.T
@@ -46,6 +56,16 @@ def convert_leaf(path, value):
         raise ValueError(f"{'/'.join(path)}: unknown leaf {leaf!r}")
     return ".".join(mods + [leaf]), torch.from_numpy(
         np.array(value, dtype=np.float32, order="C"))
+
+
+def flax_leaf(torch_name, value):
+    """The Flax layout of a torch parameter or buffer (numpy), the inverse
+    of convert_leaf's."""
+    if not torch_name.endswith(".weight"):
+        return value
+    if value.ndim == 4 and torch_name.split(".")[-2] in TRANSPOSED_CONVS:
+        return value.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
 
 
 def flax_path(torch_name):

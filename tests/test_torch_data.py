@@ -3,6 +3,7 @@ package's (`simpledet_tpu.data`, `simpledet_tpu.eval.coco_eval`) on the
 synthetic micro-COCO of tests/fixtures.py, on the CPU: identical records,
 batches and summaries."""
 import copy
+import json
 import pickle
 
 import numpy as np
@@ -175,8 +176,14 @@ def test_coco_eval_matches(micro, seed, noise, n_false):
 
 
 def test_coco_eval_refuses_segm(micro):
-    with pytest.raises(NotImplementedError, match="segm"):
-        COCOEval(micro["ann"], iou_type="segm")
+    """The segm evaluator (ported with Mask R-CNN) refuses detections that
+    carry no mask, and an iou_type it does not know."""
+    with open(micro["ann"]) as f:
+        dets = _detections(np.random.RandomState(0), json.load(f), 1.0, 0)
+    with pytest.raises(KeyError, match="_mask"):
+        COCOEval(micro["ann"], iou_type="segm").evaluate(dets)
+    with pytest.raises(ValueError, match="keypoints"):
+        COCOEval(micro["ann"], iou_type="keypoints")
 
 
 def _same_dataset(root_a, root_b, set_name):

@@ -38,7 +38,13 @@ def test_reading_and_building_imports_no_jax():
         "    cascade, _ = detector_from_config(f'config/{cfg}.py',"
         " device='cpu', is_train=True)\n"
         "    assert len(cascade.heads) == 3\n"
-        "import simpledet_torch.breakdown\n"
+        "import simpledet_torch.breakdown, simpledet_torch.mask_test\n"
+        # the mask configs' test chain imports simpledet_tpu.data.transforms
+        "for cfg, tr in (('mask_r50v1_fpn_1x', False), "
+        "('converge_mask', True)):\n"
+        "    mask, _ = detector_from_config(f'config/{cfg}.py',"
+        " device='cpu', is_train=tr)\n"
+        "    assert mask.mask_head is not None\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(sum(p.numel() for p in model.parameters()))\n")

@@ -272,6 +272,56 @@ def test_roi_align_backward_kernel_matches_plain(cuda, dtype, tied, roi_set):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("roi_set", ["mixed", "identical", "wide", "edges",
+                                     "collapsed"])
+def test_roi_align_kernels_at_14_match_plain(cuda, dtype, roi_set):
+    """The mask branch's 14 x 14 (B=2, C=256, patchy features): the forward
+    without codes at the serving path's 100 kept boxes an image and with
+    codes at the training path's 128 fg rois an image, identical to the
+    plain version's (bf16: the plain fp32 result rounded once); the
+    backward on the 128 within the bounds of the 7 x 7 test above."""
+    rng = np.random.RandomState(20)
+    dt = getattr(torch, dtype)
+    feats = [f.to(cuda, dt) for f in patchy(rng, pyramid(rng, 2, 200, 336,
+                                                         256))]
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    for r, with_codes in ((100, False), (128, True)):
+        if roi_set == "mixed":
+            rois = rois_for(rng, 2, r, 800, 1344)
+        else:
+            rois = torch.from_numpy(chip_smoke.roi_edge_cases(
+                rng, r, 2, 800, 1344)[roi_set])
+        rois = rois.to(cuda)
+        got = kroi.roi_align_fwd_cuda(feats, rois, STRIDES, out_size=14,
+                                      with_codes=with_codes)
+        want = kroi.multilevel_roi_align_plain(
+            [f.float() for f in feats], rois, STRIDES, out_size=14,
+            with_codes=with_codes)
+        torch.cuda.synchronize()
+        if not with_codes:
+            assert got.shape == (2, r, 14, 14, 256)
+            assert torch.equal(got, want.to(dt))
+    (out, codes), (want_out, want_codes) = got, want
+    assert torch.equal(codes, want_codes)
+    assert torch.equal(out, want_out.to(dt))
+    g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(cuda, dt)
+    grads = kroi.roi_align_bwd_cuda(g, codes, rois, level_hw, strides=STRIDES,
+                                    dtype=dt, out_size=14)
+    torch.cuda.synchronize()
+    plain = kroi.multilevel_roi_align_bwd_plain(
+        g.float(), codes, rois, level_hw, strides=STRIDES,
+        dtype=torch.float32, out_size=14)
+    for gl, wl in zip(grads, plain):
+        scale = float(wl.abs().max())
+        if dt == torch.float32:
+            assert float((gl - wl).abs().max()) <= 1e-5 * scale
+        else:
+            torch.testing.assert_close(gl.float(), wl.to(dt).float(),
+                                       rtol=2 ** -7, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
 def test_roi_align_autograd_on_card(cuda):
     """Gradients through `multilevel_roi_align` on CUDA tensors (kernel
     forward with codes, kernel backward) against torch.autograd of the plain
