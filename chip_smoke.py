@@ -99,6 +99,28 @@ Phases, each fatal on error:
      the train CLI on config/converge_mask.py (20 iterations) and
      `simpledet_torch.mask_test`: bbox and segm summaries, the result json
      in COCO RLE;
+  M. serve config/retina_r50v1_fpn_1x.py (RetinaNet, R50v1-FPN P3-P7, 81
+     classes, 256-wide neck and towers, fp32 without TF32) as phase 4 does:
+     no RoIAlign, one NMS launch a request (the per-class NMS over the 5
+     levels' top 1000 candidates: 160 problems of 5000 boxes at batch 2);
+     one request at score_thr=0, so every box of those problems is live;
+     detections against the same path with the NMS's plain version (in
+     chunks of problems) within 1e-4; K3 on that request's own 160 x 5000
+     call against the plain version, chunked, its largest keep-flag
+     difference (none), time, bound and suppression mask; the request's
+     breakdown (backbone, neck, subnets, decode and top-k, per-class NMS)
+     and the device's idle share; ms per image beside phase 4's; then
+     config/retina_r101v1_fpn_1x.py served, one line;
+  N. train config/retina_r50v1_fpn_1x.py at full width (batch 2, 800 x
+     1333, 20 gt boxes an image: about 201,600 anchors an image through the
+     dense targets and the focal loss): the focal loss against its float64
+     definition, the dense targets' time, 2 warm-up and 5 timed steps with
+     finite losses, frozen parameters unchanged and trained ones moved,
+     ms/step and the idle share of 3 traced steps beside phase 5's step;
+     this path launches no counterpart of a TPU kernel, and says so;
+  O. in a fresh temporary directory: config/retina_micro_test.py through
+     the train CLI (8 iterations on the synthetic micro-COCO), then
+     `simpledet_torch.detection_test` on its checkpoint (COCO eval);
   then, beside phases A-C:
   H. config/converge_cascade.py (depth-18 FPN, SyncBN, 3 stages) from
      scratch at batch 8 for 480 steps through the train CLI, the three
@@ -112,14 +134,29 @@ Phases, each fatal on error:
      step of the trained model, then `simpledet_torch.mask_test`: the gates
      of the JAX package's tests/test_converge_mask.py (box AP >= 0.6, segm
      AP >= 0.6, segm AP50 >= 0.95), beside the JAX record;
+  P. config/converge_retina.py (depth-18 FPN, SyncBN, a 64-wide head, adam)
+     from scratch on phase C's images at batch 8 for 640 steps through the
+     train CLI, then the test CLI on the train set: the gates of the JAX
+     package's tests/test_converge_retina.py (last-20 mean loss under half
+     the first-20, AP >= 0.6, AP50 >= 0.8) beside the JAX record; K3 on
+     the eval's per-class NMS calls against the plain version;
+  Q. serve config/rpn_r50v1_fpn_1x.py (the RPN-only detector) at full width
+     through Detector.propose: 1000 proposals an image, one NMS launch a
+     request, proposals against the plain-NMS path, K3 on a request's own
+     call, the breakdown; train it as phase N does; then
+     `simpledet_torch.rpn_test` on phase C's checkpoint: best Recall@N at
+     IoU 0.5 >= 0.95 (the JAX package's tests/test_convergence.py gate);
   10. print each phase's wall time as it ends, the `kernels` JSON line
      (launches per path: serving, training, serving_bf16, training_bf16,
      train_cli, eval_cli, serving_cascade, training_cascade,
      serving_cascade_r101, serving_mask, training_mask, train_cli_mask,
-     mask_test_cli, training_syncbn, train_cli_syncbn, eval_cli_syncbn,
+     mask_test_cli, serving_retina, serving_retina_r101, training_retina,
+     retina_cli, training_syncbn, train_cli_syncbn, eval_cli_syncbn,
      converge, converge_eval, converge_cascade, converge_cascade_eval,
-     converge_mask, converge_mask_eval; times at converge_test's shapes, on
-     the cascade's and the Mask R-CNN's inputs), the card's line, and
+     converge_mask, converge_mask_eval, converge_retina, serving_rpn_only,
+     training_rpn_only, rpn_test; times at converge_test's shapes, on the
+     cascade's, the Mask R-CNN's, RetinaNet's (160 x 5000), converge_retina's
+     and the RPN-only detector's inputs), the card's line, and
      {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
@@ -674,16 +711,31 @@ def read_counts(path, required):
 
 def stage_count(model):
     """RoIAlign launches a request or step: one a box-head stage (3 for a
-    Cascade R-CNN), one more for a mask branch."""
+    Cascade R-CNN), one more for a mask branch; none for a RetinaNet or an
+    RPN-only model."""
+    if not hasattr(model, "extract_rois"):
+        return 0
     return len(getattr(model, "heads", (model,))) + int(
         hasattr(model, "mask_head"))
+
+
+def plain_nms(boxes, valid, thr):
+    """The plain NMS keep flags in chunks of problems: its [P, n, n]
+    intermediates at a RetinaNet request's 160 x 5000 would take about 16
+    GB each; a chunk holds at most 1e8 pairs."""
+    from simpledet_torch.kernels import nms as knms
+
+    n = boxes.shape[1]
+    step = max(1, int(1e8 // max(n * n, 1)))
+    return torch.cat([knms.nms_keep_sorted_plain(boxes[i:i + step],
+                                                 valid[i:i + step], thr)
+                      for i in range(0, boxes.shape[0], step)])
 
 
 def serve(dev, smi, config=CONFIG, path="serving"):
     """Requests through the config's Detector (phase 4's checks). Returns
     (launch counts, ms per image, the Detector)."""
     from simpledet_torch.infer import Detector, precision, synthetic_batch
-    from simpledet_torch.kernels import nms as knms
     from simpledet_torch.kernels import roi_align as kroi
 
     det = Detector(config, device=dev, seed=0)
@@ -700,14 +752,22 @@ def serve(dev, smi, config=CONFIG, path="serving"):
     ms_img = (time.perf_counter() - t0) * 1e3 / (B * (len(requests) - 1))
     live = det.detect(*requests[0], score_thr=0.0)
     torch.cuda.synchronize()
-    counts = read_counts(path, ("nms", "roi_align_fwd"))
+    per_request = stage_count(det.model)
+    counts = read_counts(path, ("nms", "roi_align_fwd") if per_request
+                         else ("nms",))
     if counts["roi_align_bwd"]:
         raise AssertionError(f"{path} launched the RoIAlign backward")
-    per_request = stage_count(det.model)
     if counts["roi_align_fwd"] != per_request * len(requests):
         raise AssertionError(f"{path}: {counts['roi_align_fwd']} RoIAlign "
                              f"launches for {len(requests)} requests, want "
                              f"{per_request} a request")
+    # one NMS launch for the proposals (two-stage models), one for the
+    # per-class NMS
+    nms_per_request = 1 + int(hasattr(det.model, "rpn"))
+    if counts["nms"] != nms_per_request * len(requests):
+        raise AssertionError(f"{path}: {counts['nms']} NMS launches for "
+                             f"{len(requests)} requests, want "
+                             f"{nms_per_request} a request")
     check_feature_dtype(det.model, requests[1][0], requests[1][1],
                         det.spec.pixel_norm)
 
@@ -731,10 +791,12 @@ def serve(dev, smi, config=CONFIG, path="serving"):
         "first timed request")
 
     # the same requests with both kernels replaced by their plain versions
+    # (the NMS's in chunks of problems: a RetinaNet request at score_thr=0
+    # gives it 160 problems of 5000 live boxes)
     import simpledet_torch.models.faster_rcnn as frcnn
     import simpledet_torch.ops.nms as onms
     saved = (onms.nms_keep_sorted, frcnn.multilevel_roi_align)
-    onms.nms_keep_sorted = knms.nms_keep_sorted_plain
+    onms.nms_keep_sorted = plain_nms
     frcnn.multilevel_roi_align = kroi.multilevel_roi_align_plain
     try:
         ref = det.detect(*requests[1])
@@ -918,6 +980,94 @@ def term_scales(model):
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 
 
+def loss_check(path):
+    """check(i, losses): the losses as floats, each logged; raises where
+    one is not finite."""
+
+    def check(i, losses):
+        vals = {k: float(v) for k, v in losses.items()}
+        log(f"{path} step {i}: " + ", ".join(f"{k} {v:.5f}"
+                                            for k, v in vals.items()))
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{path} step {i}: a loss is not finite")
+        return vals
+
+    return check
+
+
+def timed_steps(trainer, batch, path, smi, check, warm_from=0):
+    """Warm-up steps warm_from .. TRAIN_WARMUP - 1, then TRAIN_TIMED timed
+    ones, the kernels' counts set to 0 just before them; the caller reads
+    the counts just after. Returns (ms a step, its phase split)."""
+    from simpledet_torch.infer import precision
+    from simpledet_torch.train import PhaseTimer
+
+    for i in range(warm_from, TRAIN_WARMUP):
+        check(i, trainer.step(*batch))
+    torch.cuda.synchronize()
+    timer = PhaseTimer()
+    trainer.timer = timer
+    zero_counts()
+    step_s = []
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        timer.start()
+        losses = trainer.step(*batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        timer.collect()
+        check(i, losses)
+    trainer.timer = None
+    ms_step = 1e3 * sum(step_s) / len(step_s)
+    split = {k: v / TRAIN_TIMED for k, v in timer.totals.items()}
+    log(f"{path}: {ms_step:.3f} ms/step ({B * 1e3 / ms_step:.2f} img/s) at "
+        f"{H}x{W}, batch {B}, {precision(trainer.model)}, on {smi}; per "
+        "step " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    return ms_step, split
+
+
+def step_profile(trainer, batch, path):
+    """The device's busy and idle share of PROFILED_STEPS traced steps
+    (torch.profiler), its top kernels and profiler ranges."""
+    from simpledet_torch.breakdown import device_profile
+
+    traced_ms, busy_ms, top, ranges = device_profile(
+        lambda: trainer.step(*batch), PROFILED_STEPS)
+    out = dict(traced_step_ms=traced_ms, device_busy_ms=busy_ms,
+               device_idle_share=max(0.0, 1.0 - busy_ms / traced_ms),
+               top_kernels_ms=top, ranges_device_ms=ranges)
+    log(f"{path}: {PROFILED_STEPS} traced steps (torch.profiler): "
+        f"{traced_ms:.3f} ms a step, device busy {busy_ms:.3f} ms, idle "
+        f"{out['device_idle_share']:.1%}; top kernels "
+        + json.dumps({k: round(v, 3) for k, v in list(top.items())[:6]})
+        + (f"; profiler ranges (device ms a step) {json.dumps(ranges)}"
+           if ranges else ""))
+    return out
+
+
+def check_trained(trainer, start, path):
+    """Against the state dict `start`: frozen parameters and buffers
+    bit-unchanged, trained ones moved, SyncBN's running statistics moved
+    and finite."""
+    from simpledet_torch.models.norm import batch_stat_names
+
+    after = trainer.model.state_dict()
+    for name, trainable in trainer.trainable.items():
+        same = torch.equal(after[name], start[name])
+        if trainable == same:
+            raise AssertionError(f"{path}: {name}: {'trainable but unchanged' if same else 'frozen but moved'}")
+    stats = batch_stat_names(trainer.model)
+    for name in stats:
+        if torch.equal(after[name], start[name]) or not torch.isfinite(
+                after[name]).all():
+            raise AssertionError(f"{path}: running statistics {name} did "
+                                 "not move or are not finite")
+    n_frozen = sum(not t for t in trainer.trainable.values())
+    log(f"{path}: {n_frozen} frozen parameters and buffers bit-unchanged, "
+        f"{len(trainer.trainable) - n_frozen} trained ones moved, "
+        f"{len(stats)} running statistics moved and finite")
+
+
 def train(dev, smi, config=CONFIG, path="training", trainer=None,
           batch=None, profile=False, record=False):
     """The config's seeded train detector on a synthetic batch (a mask
@@ -930,12 +1080,8 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
     kernels' calls of one more step (`recording`)."""
     import copy
 
-    from simpledet_torch.breakdown import device_profile
     from simpledet_torch.core.train import Trainer
-    from simpledet_torch.infer import precision
-    from simpledet_torch.models.norm import batch_stat_names
-    from simpledet_torch.train import (PhaseTimer, synthetic_gt_poly,
-                                       synthetic_train_batch)
+    from simpledet_torch.train import synthetic_gt_poly, synthetic_train_batch
 
     if trainer is None:
         trainer = Trainer.from_config(config, device=dev, seed=0)
@@ -946,17 +1092,9 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
         trainer.fold_batch_stats(*batch[:2])
     images, im_info = batch[:2]
     model = trainer.model
-    how = precision(model)
     check_feature_dtype(model, images, im_info, trainer.pixel_norm)
     start = {k: v.clone() for k, v in model.state_dict().items()}
-
-    def check(i, losses):
-        vals = {k: float(v) for k, v in losses.items()}
-        log(f"{path} step {i}: " + ", ".join(f"{k} {v:.5f}"
-                                            for k, v in vals.items()))
-        if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"{path} step {i}: a loss is not finite")
-        return vals
+    check = loss_check(path)
 
     # the box head's loss against the definition of its cross-entropy (the
     # mean over the b * r rois of logsumexp(logits) - logit[label]), in
@@ -993,22 +1131,8 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
         if abs(first[k] - want) > tol:
             raise AssertionError(f"step 0 {k} {first[k]:.4f} is not near "
                                  f"{want:.4f}")
-    for i in range(1, TRAIN_WARMUP):
-        check(i, trainer.step(*batch))
-    torch.cuda.synchronize()
-
-    timer = PhaseTimer()
-    trainer.timer = timer
-    zero_counts()
-    step_s = []
-    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_TIMED):
-        t0 = time.perf_counter()
-        timer.start()
-        losses = trainer.step(*batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        timer.collect()
-        check(i, losses)
+    ms_step, split = timed_steps(trainer, batch, path, smi, check,
+                                 warm_from=1)
     counts = read_counts(path, ("nms", "roi_align_fwd", "roi_align_bwd"))
     per_step = stage_count(model)
     for name in ("roi_align_fwd", "roi_align_bwd"):
@@ -1016,12 +1140,6 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
             raise AssertionError(f"{path}: {counts[name]} {name} launches in "
                                  f"{TRAIN_TIMED} steps, want {per_step} a "
                                  "step")
-    trainer.timer = None
-    ms_step = 1e3 * sum(step_s) / len(step_s)
-    split = {k: v / TRAIN_TIMED for k, v in timer.totals.items()}
-    log(f"{path}: {ms_step:.3f} ms/step ({B * 1e3 / ms_step:.2f} img/s) at "
-        f"{H}x{W}, batch {B}, {how}, on {smi}; per step "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
     extra = {}
     if record:
         with recording() as calls:
@@ -1029,33 +1147,8 @@ def train(dev, smi, config=CONFIG, path="training", trainer=None,
         torch.cuda.synchronize()
         extra["calls"] = calls
     if profile:
-        traced_ms, busy_ms, top, ranges = device_profile(
-            lambda: trainer.step(*batch), PROFILED_STEPS)
-        extra.update(traced_step_ms=traced_ms, device_busy_ms=busy_ms,
-                     device_idle_share=max(0.0, 1.0 - busy_ms / traced_ms),
-                     top_kernels_ms=top, ranges_device_ms=ranges)
-        log(f"{path}: {PROFILED_STEPS} traced steps (torch.profiler): "
-            f"{traced_ms:.3f} ms a step, device busy {busy_ms:.3f} ms, idle "
-            f"{extra['device_idle_share']:.1%}; top kernels "
-            + json.dumps({k: round(v, 3) for k, v in list(top.items())[:6]})
-            + (f"; profiler ranges (device ms a step) {json.dumps(ranges)}"
-               if ranges else ""))
-
-    after = model.state_dict()
-    for name, trainable in trainer.trainable.items():
-        same = torch.equal(after[name], start[name])
-        if trainable == same:
-            raise AssertionError(f"{name}: {'trainable but unchanged' if same else 'frozen but moved'}")
-    stats = batch_stat_names(model)
-    for name in stats:
-        if torch.equal(after[name], start[name]) or not torch.isfinite(
-                after[name]).all():
-            raise AssertionError(f"running statistics {name} did not move "
-                                 "or are not finite")
-    n_frozen = sum(not t for t in trainer.trainable.values())
-    log(f"{n_frozen} frozen parameters and buffers bit-unchanged, "
-        f"{len(trainer.trainable) - n_frozen} trained ones moved, "
-        f"{len(stats)} running statistics moved and finite")
+        extra.update(step_profile(trainer, batch, path))
+    check_trained(trainer, start, path)
 
     # one step from a copied state, with the kernels and with plain versions
     saved = (copy.deepcopy(model.state_dict()),
@@ -1778,6 +1871,398 @@ def mask_cli_phase(dev, smi):
     return train_counts, eval_counts, stats
 
 
+# ----------------------------------------------- phases M, N, O, P and Q
+
+CONFIG_RETINA = os.path.join(REPO, "config", "retina_r50v1_fpn_1x.py")
+CONFIG_RETINA_R101 = os.path.join(REPO, "config", "retina_r101v1_fpn_1x.py")
+CONFIG_RETINA_MICRO = os.path.join(REPO, "config", "retina_micro_test.py")
+CONFIG_RPN = os.path.join(REPO, "config", "rpn_r50v1_fpn_1x.py")
+CONFIG_CONVERGE_RETINA = "config/converge_retina.py"
+CONVERGE_RETINA_EPOCHS = 160        # the config's: 640 steps at batch 8
+# experiments/chip/converge_retina/{log.txt,losses.jsonl}: 640 steps at
+# batch 8 on one TPU chip, and the means of its first and last 20 losses
+JAX_CONVERGE_RETINA = dict(AP=0.903, AP50=0.985, AP75=0.886, first20=1.4201,
+                           last20=0.00035, chip="one TPU chip")
+BREAKDOWN_COUNT = 5
+
+
+def nms_reading(calls, path):
+    """Each recorded NMS call's keep flags against the plain version's (in
+    chunks of problems, `plain_nms`); the largest call timed beside its
+    bound and its plain version, with its suppression mask's size
+    (`simpledet_nms_mask_words`). max_abs_err counts the flags that
+    differ over all the calls (0 or the phase fails)."""
+    from simpledet_torch.kernels import nms as knms
+
+    for boxes, valid, thr in calls["nms"]:
+        got = knms.nms_keep_sorted(boxes, valid, thr)
+        torch.cuda.synchronize()
+        diff = int((got != plain_nms(boxes, valid, thr)).sum())
+        if diff:
+            raise AssertionError(f"{path}: NMS {tuple(boxes.shape[:2])}@"
+                                 f"{thr}: {diff} keep flags differ")
+    boxes, valid, thr = max(calls["nms"],
+                            key=lambda c: c[0].shape[0] * c[0].shape[1])
+    p, n = valid.shape
+    bms, by = nms_bound(boxes, valid)
+    out = dict(ms=cuda_ms(lambda: knms.nms_keep_sorted(boxes, valid, thr), 20),
+               plain_ms=cuda_ms(lambda: plain_nms(boxes, valid, thr), 1, 1),
+               bound_ms=bms, bound_by=by, max_abs_err=0.0, shape=[p, n],
+               live=int(valid.sum()), kept=int(knms.nms_keep_sorted(
+                   boxes, valid, thr).sum()),
+               mask_mb=p * knms._lib().simpledet_nms_mask_words(n) * 8 / 2**20)
+    log(f"{path}: NMS on the path's own inputs ({len(calls['nms'])} calls, "
+        f"largest {p}x{n}@{thr}, {out['live']} live boxes, {out['kept']} "
+        f"kept, suppression mask {out['mask_mb']:.1f} MiB): keep flags "
+        f"identical to the plain version's; kernel {out['ms']:.4f} ms, "
+        f"plain {out['plain_ms']:.4f} ms, bound {bms:.6f} ms ({by})")
+    return out
+
+
+def request_breakdown(det, path, images, im_info):
+    """`simpledet_torch.breakdown`'s stages of one request, each timed with
+    CUDA events over BREAKDOWN_COUNT requests, and the device's idle share
+    of as many traced requests."""
+    from simpledet_torch.breakdown import device_profile, stage_times, stages
+
+    im_info = im_info.to(det.device)
+    with torch.no_grad():
+        stage_ms, _ = stage_times(stages(det, images, im_info),
+                                  BREAKDOWN_COUNT)
+    traced_ms, busy_ms, top, _ = device_profile(
+        lambda: det.serve(images, im_info), BREAKDOWN_COUNT)
+    out = dict(stage_ms=stage_ms, traced_request_ms=traced_ms,
+               device_busy_ms=busy_ms,
+               device_idle_share=max(0.0, 1.0 - busy_ms / traced_ms),
+               top_kernels_ms=dict(list(top.items())[:6]))
+    log(f"{path} breakdown (ms a request of {B} images): "
+        + json.dumps({k: round(v, 3) for k, v in stage_ms.items()})
+        + f"; traced {traced_ms:.3f} ms, device idle "
+        f"{out['device_idle_share']:.1%}; top kernels "
+        + json.dumps({k: round(v, 3) for k, v in out["top_kernels_ms"].items()}))
+    return out
+
+
+def serve_retina(dev, smi, config=CONFIG_RETINA, path="serving_retina"):
+    """Phase M: phase 4 on a RetinaNet config (no RoIAlign; one NMS launch
+    a request, the per-class NMS over the 5 levels' top 1000 candidates, so
+    160 problems of 5000 boxes at batch 2; at score_thr=0 every box is
+    live); detections against the plain-NMS path within 1e-4. Then K3 on a
+    score_thr=0 request's own 160 x 5000 call against the plain version,
+    chunked, and the request's breakdown."""
+    from simpledet_torch.infer import synthetic_batch
+
+    counts, ms_img, det = serve(dev, smi, config, path)
+    images, im_info = synthetic_batch(B, H, W, 1)
+    images = images.to(dev)
+    with recording() as calls:
+        det.detect(images, im_info, score_thr=0.0)
+    torch.cuda.synchronize()
+    (boxes, valid, _), = calls["nms"]
+    p_rpn = det.model.head.p
+    want = (B * (p_rpn.num_class - 1),
+            len(p_rpn.anchor_generate.stride) * p_rpn.proposal.pre_nms_top_n)
+    if tuple(valid.shape) != want or not bool(valid.all()):
+        raise AssertionError(f"{path}: the score_thr=0 request's per-class "
+                             f"NMS is {tuple(valid.shape)}, "
+                             f"{int(valid.sum())} live, want {want} live")
+    return counts, ms_img, nms_reading(calls, path), request_breakdown(
+        det, path, images, im_info)
+
+
+def focal_definition(model, batch, pixel_norm, dev, path):
+    """The focal loss of one train forward without grad against its
+    definition in float64 (alpha (1-p)^gamma -log p on the label's column,
+    (1-alpha) p^gamma -log(1-p) on the others, ignored anchors 0, over the
+    global foreground count): within 1e-5. The dense targets' time (CUDA
+    events)."""
+    from simpledet_torch.ops.image import device_normalize
+
+    images, im_info, gt = batch
+    with torch.no_grad():
+        info = im_info.to(dev)
+        data = device_normalize(images, info, *pixel_norm).float()
+        outs = model.head_module(model.pyramid(data))
+        losses, aux = model.head.loss(outs, gt.to(dev), info)
+        logits, _ = model.head.flatten_outputs(outs)
+    p_focal = model.head.p.focal_loss
+    z = logits.double()
+    label = aux["rpn_label"].long()
+    target = label[..., None] == torch.arange(1, z.shape[-1] + 1,
+                                              device=dev)
+    prob = torch.sigmoid(z)
+    pos = -p_focal.alpha * (1 - prob) ** p_focal.gamma * torch.log(prob)
+    neg = -(1 - p_focal.alpha) * prob ** p_focal.gamma * torch.log1p(-prob)
+    per = torch.where(target, pos, neg).sum(-1)
+    want = float(torch.where(label >= 0, per, 0.0).sum()
+                 / aux["rpn_fg_count"].double())
+    got = float(losses["retina_cls_loss"])
+    if abs(got - want) > 1e-5 * want:
+        raise AssertionError(f"{path}: retina_cls_loss {got} is not the "
+                             f"float64 focal sum over the fg count {want}")
+    n_anchor = label.shape[1]
+    gt_d = gt.to(dev)
+    ms_targets = cuda_ms(lambda: model.head.targets(outs, gt_d, info), 3, 1)
+    log(f"{path}: retina_cls_loss {got:.6f} equals the float64 focal sum "
+        f"over {n_anchor} anchors x {z.shape[-1]} classes an image / fg "
+        f"count {float(aux['rpn_fg_count']):.0f} ({want:.6f}) within 1e-5; "
+        f"dense targets {ms_targets:.3f} ms a step (CUDA events)")
+    return dict(anchors_per_image=n_anchor,
+                fg_count=float(aux["rpn_fg_count"]), targets_ms=ms_targets)
+
+
+def train_dense(dev, smi, config, path):
+    """Phase N (and the RPN-only training of phase Q): the config's seeded
+    train detector at full width on a synthetic batch (20 gt boxes an
+    image), its FrozenBN folded; a RetinaNet's focal loss against its
+    definition (`focal_definition`); 2 warm-up and 5 timed steps with
+    finite losses; the launches of the timed steps (none: this path runs no
+    counterpart of a TPU kernel; an RPN-only model's train forward makes no
+    proposals); frozen parameters bit-unchanged and trained ones moved; the
+    device's idle share of 3 traced steps. Returns (launch counts, ms per
+    step, its split, extra)."""
+    from simpledet_torch.core.train import Trainer
+    from simpledet_torch.train import synthetic_train_batch
+
+    trainer = Trainer.from_config(config, device=dev, seed=0)
+    images, im_info, gt = synthetic_train_batch(B, H, W, 0)
+    batch = (images.to(dev), im_info, gt)
+    trainer.fold_batch_stats(*batch[:2])
+    model = trainer.model
+    extra = {}
+    if hasattr(model, "head_module"):
+        extra.update(focal_definition(model, batch, trainer.pixel_norm, dev,
+                                      path))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms_step, split = timed_steps(trainer, batch, path, smi, loss_check(path))
+    counts = read_counts(path, ())
+    if any(counts.values()):
+        raise AssertionError(f"{path} launched a kernel: {counts}")
+    log(f"{path}: no counterpart of a TPU kernel runs on this path (0 "
+        "launches of NMS and RoIAlign in the timed steps)")
+    extra["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"{path}: peak {extra['peak_gib']:.2f} GiB allocated")
+    extra.update(step_profile(trainer, batch, path))
+    check_trained(trainer, start, path)
+    return counts, ms_step, split, extra
+
+
+def retina_cli_phase(dev, smi):
+    """Phase O, in a fresh temporary directory: the synthetic micro-COCO
+    (`data/synthetic.py`, 8 images) through the train CLI on
+    config/retina_micro_test.py (ResNet-50 FPN from scratch, FrozenBN, one
+    epoch: its 8 images and their flips, 8 iterations at batch 2) and
+    simpledet_torch.detection_test on
+    its checkpoint: finite losses at the first step, the config's Focal
+    metric logged, the 12-key COCO summary of finite numbers."""
+    import tempfile
+
+    from simpledet_torch import detection_test, detection_train
+    from simpledet_torch.data.synthetic import make_micro_dataset
+
+    cwd, saved = os.getcwd(), dict(os.environ)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_retina_cli_")
+    try:
+        os.chdir(tmp)
+        make_micro_dataset(os.path.join(tmp, "micro"), n_images=8)
+        os.environ["MICRO_DATA_ROOT"] = os.path.join(tmp, "micro")
+        history = []
+        zero_counts()
+        detection_train.train_net(CONFIG_RETINA_MICRO, device=dev,
+                                  loss_history=history, seed=0)
+        torch.cuda.synchronize()
+        train_counts = read_counts("retina_cli (train)", ())
+        if len(history) != 8 or not all(
+                np.isfinite(v) for v in history[0].values()):
+            raise AssertionError(f"retina train CLI losses: {history}")
+        with open(os.path.join("experiments", "retina_micro_test",
+                               "log.txt")) as f:
+            if "Focal=" not in f.read():
+                raise AssertionError("the train CLI logged no Focal metric")
+        stats = {}
+        zero_counts()
+        summary = detection_test.test_net(CONFIG_RETINA_MICRO, device=dev,
+                                          stats=stats)
+        torch.cuda.synchronize()
+        eval_counts = read_counts("retina_cli (eval)", ("nms",))
+        if summary is None or list(summary) != SUMMARY_KEYS or not all(
+                np.isfinite(list(summary.values()))):
+            raise AssertionError(f"retina test CLI summary {summary}")
+        log(f"retina CLIs: {len(history)} train iterations, total losses "
+            f"{[round(h['total_loss'], 4) for h in history]}; detection_test "
+            f"{stats['images']} images at {stats['img_per_s']:.2f} img/s on "
+            f"{smi}; summary {json.dumps(summary)}")
+    finally:
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: train_counts[k] + eval_counts[k] for k in train_counts}, stats
+
+
+def retina_phases(dev, smi):
+    """Phases M, N and O."""
+    out = {}
+    with phase("M serving_retina"):
+        out["serving"] = serve_retina(dev, smi)
+        out["serving_r101"] = serve(dev, smi, CONFIG_RETINA_R101,
+                                    "serving_retina_r101")[:2]
+    with phase("N training_retina"):
+        out["training"] = train_dense(dev, smi, CONFIG_RETINA,
+                                      "training_retina")
+    with phase("O retina_cli"):
+        out["cli"] = retina_cli_phase(dev, smi)
+    return out
+
+
+def converge_retina(dev, smi):
+    """Phase P: config/converge_retina.py (depth-18 FPN, SyncBN, a 64-wide
+    head, adam) from scratch at batch 8 for CONVERGE_RETINA_EPOCHS epochs
+    (640 steps) on phase C's 16 images and their flips through the train
+    CLI, then the test CLI on the train set; the gates of the JAX package's
+    tests/test_converge_retina.py (last-20 mean loss under half the
+    first-20, AP >= 0.6, AP50 >= 0.8) beside its record; K3 on one eval
+    batch's per-class NMS against the plain version."""
+    from simpledet_torch import detection_test, detection_train
+
+    record = JAX_CONVERGE_RETINA
+    history = []
+    zero_counts()
+    t0 = time.perf_counter()
+    detection_train.train_net(CONFIG_CONVERGE_RETINA, device=dev,
+                              loss_history=history)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_counts = read_counts("converge_retina", ())
+    total = np.array([h["total_loss"] for h in history])
+    first, last = float(total[:20].mean()), float(total[-20:].mean())
+    log(f"converge_retina: {len(total)} steps at batch 8 in {seconds:.1f} s "
+        f"(incl. start-up, loader and logging) on {smi}; mean total loss "
+        f"first 20 {first:.4f}, last 20 {last:.6f} (the JAX record: "
+        f"{record['first20']:.4f}, {record['last20']:.5f})")
+    if len(total) != 4 * CONVERGE_RETINA_EPOCHS or \
+            not np.isfinite(total).all():
+        raise AssertionError(f"converge_retina: {len(total)} steps, finite "
+                             f"{bool(np.isfinite(total).all())}")
+    stats = {}
+    zero_counts()
+    with recording() as calls:
+        summary = detection_test.test_net(CONFIG_CONVERGE_RETINA, device=dev,
+                                          stats=stats)
+    torch.cuda.synchronize()
+    eval_counts = read_counts("converge_retina_eval", ("nms",))
+    at_converge = nms_reading(calls, "converge_retina (trained, eval)")
+    log(f"converge_retina eval: {stats['images']} images at batch "
+        f"{stats['batch']}; AP {summary['AP']:.3f}, AP50 "
+        f"{summary['AP50']:.3f}, AP75 {summary['AP75']:.3f} (the JAX "
+        f"package's record, {record['chip']}, 640 steps at batch 8: AP "
+        f"{record['AP']:.3f}, AP50 {record['AP50']:.3f}, AP75 "
+        f"{record['AP75']:.3f})")
+    gates = {"last 20 < first 20 / 2": last < 0.5 * first,
+             "AP >= 0.6": summary["AP"] >= 0.6,
+             "AP50 >= 0.8": summary["AP50"] >= 0.8}
+    if not all(gates.values()):
+        raise AssertionError(f"converge_retina gates failed: {gates}")
+    result = dict(steps=len(total), first20=first, last20=last,
+                  seconds=seconds, **{k: summary[k] for k in
+                                      ("AP", "AP50", "AP75")})
+    return ({k: train_counts[k] + eval_counts[k] for k in train_counts},
+            at_converge, result)
+
+
+def serve_rpn_only(dev, smi):
+    """Phase Q, serving: config/rpn_r50v1_fpn_1x.py at full width through
+    Detector.propose, 1000 proposals an image; one NMS launch a request
+    (every image's 5 levels in one call); the proposals against the
+    plain-NMS path (the same rows valid, boxes within 1e-3 px, scores 1e-4);
+    K3 on one request's own call."""
+    import simpledet_torch.ops.nms as onms
+    from simpledet_torch.infer import (Detector, precision,
+                                       synthetic_batch)
+
+    det = Detector(CONFIG_RPN, device=dev, seed=0)
+    requests = [synthetic_batch(B, H, W, seed) for seed in range(4)]
+    requests = [(x.to(dev), i) for x, i in requests]
+    det.propose(*requests[0])
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    results = [det.propose(x, i) for x, i in requests]
+    torch.cuda.synchronize()
+    ms_img = (time.perf_counter() - t0) * 1e3 / (B * len(requests))
+    counts = read_counts("serving_rpn_only", ("nms",))
+    if counts["nms"] != len(requests) or counts["roi_align_fwd"]:
+        raise AssertionError(f"serving_rpn_only: {counts} for "
+                             f"{len(requests)} requests")
+    for boxes, scores in results:
+        valid = scores > -1e9
+        assert boxes.shape == (B, 1000, 4) and scores.shape == (B, 1000)
+        assert torch.isfinite(boxes).all() and bool(valid[:, :100].all())
+        assert (boxes[valid] >= 0).all() and (boxes[valid][:, 2] <= W - 1).all()
+    saved = onms.nms_keep_sorted
+    onms.nms_keep_sorted = plain_nms
+    try:
+        ref = det.propose(*requests[1])
+    finally:
+        onms.nms_keep_sorted = saved
+    got = results[1]
+    if not torch.equal(got[1] > -1e9, ref[1] > -1e9):
+        raise AssertionError("serving_rpn_only: valid proposals differ from "
+                             "the plain path's")
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-6)
+    log(f"serving_rpn_only: {ms_img:.3f} ms per image at {H}x{W}, batch {B},"
+        f" proposals only, {precision(det.model)}, on {smi}; "
+        f"{int((got[1] > -1e9).sum())} proposals in the second request, "
+        "equal to the plain-NMS path's")
+    with recording() as calls:
+        det.propose(*requests[2])
+    torch.cuda.synchronize()
+    return counts, ms_img, nms_reading(calls, "serving_rpn_only"), \
+        request_breakdown(det, "serving_rpn_only", *requests[2])
+
+
+def rpn_test_phase(dev, smi):
+    """Phase Q, recall: `simpledet_torch.rpn_test`'s main with `--config
+    config/converge_test.py` on phase C's trained checkpoint (its SyncBN
+    statistics beside it): the gate of the JAX package's
+    tests/test_convergence.py, best Recall@N at IoU 0.5 >= 0.95; K3 launched
+    once a test image (batch 1)."""
+    from simpledet_torch import rpn_test
+
+    zero_counts()
+    t0 = time.perf_counter()
+    recalls = rpn_test.main(["--config", CONFIG_CONVERGE, "--device",
+                             str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts("rpn_test", ("nms",))
+    with open(os.path.join("experiments", "converge_test", "log.txt")) as f:
+        lines = f.read().splitlines()
+    start = max(i for i, ln in enumerate(lines) if "proposal recall on" in ln)
+    lines = [ln.split(" ", 2)[2] for ln in lines[start:]]
+    best = max(recalls.values())
+    log(f"rpn_test on converge_test's checkpoint: {seconds:.1f} s on {smi}; "
+        + "; ".join(ln for ln in lines if "Recall@" in ln or "loaded" in ln))
+    if "loaded SyncBN running stats" not in lines:
+        raise AssertionError("rpn_test did not load phase C's running "
+                             "statistics")
+    if best < 0.95:
+        raise AssertionError(f"rpn_test gate: best recall at IoU 0.5 {best} "
+                             "< 0.95")
+    return counts, dict({str(k): float(v) for k, v in recalls.items()},
+                        seconds=seconds)
+
+
+def rpn_only_phase(dev, smi):
+    """Phase Q: serve and train config/rpn_r50v1_fpn_1x.py at full width,
+    then the proposal-recall CLI on phase C's checkpoint."""
+    serving = serve_rpn_only(dev, smi)
+    training = train_dense(dev, smi, CONFIG_RPN, "training_rpn_only")
+    return serving, training, rpn_test_phase(dev, smi)
+
+
 # ---------------------------------------------------- phases A, B and C
 
 CONFIG_SYNC = "config/flagship_synth_curve.py"
@@ -1802,13 +2287,13 @@ SUMMARY_KEYS = ["AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
 def in_workdir(root):
     """The configs' relative paths (data/, experiments/ and the config
     names that General.name comes from) resolved under `root`: a copy of
-    the two configs there, and the synthetic data they read."""
+    the configs there, and the synthetic data they read."""
     from simpledet_torch.data.synthetic import (make_micro_dataset,
                                                 make_synth_coco)
 
     os.makedirs(os.path.join(root, "config"))
     for cfg in (CONFIG_SYNC, CONFIG_CONVERGE, CONFIG_CONVERGE_CASCADE,
-                CONFIG_CONVERGE_MASK):
+                CONFIG_CONVERGE_MASK, CONFIG_CONVERGE_RETINA):
         shutil.copyfile(os.path.join(REPO, cfg), os.path.join(root, cfg))
     make_synth_coco(os.path.join(root, "synth"), n_images=N_SYNTH_IMAGES)
     make_micro_dataset(os.path.join(root, "converge"), n_images=16,
@@ -1824,12 +2309,14 @@ def in_workdir(root):
                       CONVERGE_CASCADE_BATCH="8",
                       CONVERGE_CASCADE_EPOCHS=str(CONVERGE_CASCADE_EPOCHS),
                       CONVERGE_MASK_BATCH="8",
-                      CONVERGE_MASK_EPOCHS=str(CONVERGE_MASK_EPOCHS))
+                      CONVERGE_MASK_EPOCHS=str(CONVERGE_MASK_EPOCHS),
+                      CONVERGE_RETINA_BATCH="8",
+                      CONVERGE_RETINA_EPOCHS=str(CONVERGE_RETINA_EPOCHS))
     os.chdir(root)
     log(f"synthetic data: {N_SYNTH_IMAGES} COCO-shaped images for "
-        f"{CONFIG_SYNC}, 16 micro images for {CONFIG_CONVERGE} and "
-        f"{CONFIG_CONVERGE_CASCADE}, 16 ellipse images for "
-        f"{CONFIG_CONVERGE_MASK}")
+        f"{CONFIG_SYNC}, 16 micro images for {CONFIG_CONVERGE}, "
+        f"{CONFIG_CONVERGE_CASCADE} and {CONFIG_CONVERGE_RETINA}, 16 ellipse "
+        f"images for {CONFIG_CONVERGE_MASK}")
 
 
 def train_syncbn(dev, smi):
@@ -2230,8 +2717,8 @@ def converge_mask(dev, smi, bwd_sets):
 
 
 def syncbn_phases(dev, smi, bwd_sets):
-    """Phases A, B, C, H and L in a fresh temporary directory, removed
-    afterwards."""
+    """Phases A, B, C, H, L, P and Q in a fresh temporary directory, removed
+    afterwards (Q's recall reads phase C's checkpoint there)."""
     import tempfile
 
     cwd = os.getcwd()
@@ -2253,6 +2740,11 @@ def syncbn_phases(dev, smi, bwd_sets):
             os.environ["CONVERGE_DATA_ROOT"] = os.path.join(
                 tmp, "converge_ellipse")
             out["converge_mask"] = converge_mask(dev, smi, bwd_sets)
+        os.environ["CONVERGE_DATA_ROOT"] = os.path.join(tmp, "converge")
+        with phase("P converge_retina"):
+            out["converge_retina"] = converge_retina(dev, smi)
+        with phase("Q rpn_only"):
+            out["rpn_only"] = rpn_only_phase(dev, smi)
     finally:
         os.chdir(cwd)
         os.environ.clear()
@@ -2322,6 +2814,20 @@ def main():
     with phase("K mask train and eval CLIs"):
         paths["train_cli_mask"], paths["mask_test_cli"], mask_eval_stats = \
             mask_cli_phase(dev, smi)
+    retina = retina_phases(dev, smi)
+    (paths["serving_retina"], ms_img_retina, at_retina_serving,
+     retina_breakdown) = retina["serving"]
+    paths["serving_retina_r101"], ms_img_retina_r101 = retina["serving_r101"]
+    (paths["training_retina"], ms_step_retina, split_retina,
+     profile_retina) = retina["training"]
+    paths["retina_cli"], retina_eval_stats = retina["cli"]
+    log(f"serving_retina: {ms_img_retina:.3f} ms/image against the "
+        f"flagship's {ms_img:.3f} in this call "
+        f"({ms_img_retina / ms_img:.2f}x), serving_retina_r101 "
+        f"{ms_img_retina_r101:.3f}; training_retina {ms_step_retina:.3f} "
+        f"ms/step against the flagship fp32 step of this call {ms_step:.3f} "
+        f"({ms_step_retina / ms_step:.2f}x), idle "
+        f"{profile_retina['device_idle_share']:.1%}; on {smi}")
     sync = syncbn_phases(dev, smi, bwd_sets)
     paths["training_syncbn"], ms_step_sync, split_sync, _ = \
         sync["training_syncbn"]
@@ -2332,6 +2838,14 @@ def main():
      at_converge_cascade, converge_cascade_result) = sync["converge_cascade"]
     (paths["converge_mask"], paths["converge_mask_eval"], at_converge_mask,
      converge_mask_result) = sync["converge_mask"]
+    paths["converge_retina"], at_converge_retina, converge_retina_result = \
+        sync["converge_retina"]
+    rpn_serving, rpn_training, rpn_recall = sync["rpn_only"]
+    (paths["serving_rpn_only"], ms_img_rpn, at_rpn_serving,
+     rpn_breakdown) = rpn_serving
+    paths["training_rpn_only"], ms_step_rpn, split_rpn, profile_rpn = \
+        rpn_training
+    paths["rpn_test"], rpn_recalls = rpn_recall
     log(f"training_syncbn: {ms_step_sync:.3f} ms/step "
         f"({B * 1e3 / ms_step_sync:.2f} img/s) against the FrozenBN bf16 "
         f"step of this call {ms_step_bf16:.3f} ms/step "
@@ -2354,7 +2868,10 @@ def main():
              cascade_r101_serving=at_r101["nms"],
              converge_cascade=at_converge_cascade["nms"],
              mask_serving=at_mask_serving["nms"],
-             converge_mask=at_converge_mask["nms"]),
+             converge_mask=at_converge_mask["nms"],
+             retina_serving_score0=at_retina_serving,
+             converge_retina=at_converge_retina,
+             rpn_only_serving=at_rpn_serving),
         dict(name="roi_align_fwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:267",
              **launches("roi_align_fwd"),
@@ -2420,6 +2937,23 @@ def main():
                     "mask_test_cli_img_per_s": mask_eval_stats["img_per_s"],
                     "converge_mask": converge_mask_result,
                     "converge_mask_jax_record": JAX_CONVERGE_MASK,
+                    "serving_retina_ms_per_image": ms_img_retina,
+                    "serving_retina_breakdown": retina_breakdown,
+                    "serving_retina_r101_ms_per_image": ms_img_retina_r101,
+                    "training_retina_ms_per_step": ms_step_retina,
+                    "training_retina_img_per_s": B * 1e3 / ms_step_retina,
+                    "training_retina_split_ms": split_retina,
+                    "training_retina_profile": profile_retina,
+                    "retina_cli_eval_img_per_s":
+                        retina_eval_stats["img_per_s"],
+                    "converge_retina": converge_retina_result,
+                    "converge_retina_jax_record": JAX_CONVERGE_RETINA,
+                    "serving_rpn_only_ms_per_image": ms_img_rpn,
+                    "serving_rpn_only_breakdown": rpn_breakdown,
+                    "training_rpn_only_ms_per_step": ms_step_rpn,
+                    "training_rpn_only_split_ms": split_rpn,
+                    "training_rpn_only_profile": profile_rpn,
+                    "rpn_test_recalls": rpn_recalls,
                     "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,7 +8,9 @@ proposals, RoIAlign, box head + decode, per-class NMS; for a Cascade R-CNN
 config, RoIAlign and box head + refine of each of its three stages, then the
 score averaging over the three heads; for a Mask R-CNN config, then the mask
 RoIAlign on the kept boxes and the mask head with its sigmoid; pasting the
-masks into the image is eval work, outside the request), timing each stage
+masks into the image is eval work, outside the request; for a RetinaNet
+config: normalise, backbone, neck, subnets, decode and top-k, per-class
+NMS; for an RPN-only config the stages up to the proposals), timing each stage
 with CUDA events over `count` requests, then traces `count` whole requests with
 torch.profiler for the device's busy share and the top kernels by device time.
 Prints one JSON object with the card's name and power limit and how the
@@ -25,6 +27,8 @@ from simpledet_torch.eval.postprocess import per_class_nms
 from simpledet_torch.infer import (Detector, card_name_and_power, full_fp32,
                                    precision, synthetic_batch)
 from simpledet_torch.models.cascade_rcnn import STAGES, CascadeRcnn
+from simpledet_torch.models.faster_rcnn import RpnOnly
+from simpledet_torch.models.retinanet import RetinaNet
 from simpledet_torch.models.mask_rcnn import PROFILER_RANGES, MaskFasterRcnn
 from simpledet_torch.ops.image import device_normalize
 
@@ -89,6 +93,31 @@ def stages(det, images, im_info):
                                    nms_thr=det.nms_thr, max_det=det.max_det)
         return st["post"]
 
+    if isinstance(m, RetinaNet):
+        def backbone():
+            st["feats"] = m.backbone(st["x"].permute(0, 3, 1, 2))
+
+        def neck():
+            st["pyr"] = m.neck(st["feats"])
+
+        def subnets():
+            st["outs"] = m.head_module(st["pyr"])
+
+        def decode():
+            out = m.test_outputs(st["outs"], im_info)
+            st["score"], st["boxes"] = out["cls_score"], out["bbox_xyxy"]
+
+        return [("normalize", norm), ("backbone", backbone), ("neck", neck),
+                ("subnets", subnets), ("decode_topk", decode),
+                ("per_class_nms", nms)]
+    if isinstance(m, RpnOnly):
+        def last_proposals():
+            proposals()
+            return st["props"]
+
+        return [("normalize", norm), ("backbone_fpn", pyramid),
+                ("rpn_head", rpn_head), ("proposals", last_proposals)]
+
     def mask_roi_align():
         st["mask_feat"] = m.extract_mask_rois(st["pyr"], st["post"][0])
 
@@ -102,6 +131,29 @@ def stages(det, images, im_info):
     return [("normalize", norm), ("backbone_fpn", pyramid),
             ("rpn_head", rpn_head), ("proposals", proposals), *middle,
             ("per_class_nms", nms), *masks]
+
+
+def stage_times(steps, count):
+    """({stage: ms per request}, wall ms per request) of the (name, thunk)
+    pairs of `stages`: one warm-up request (kernel builds, cuDNN plans),
+    then `count` requests with CUDA events around each stage."""
+    for _, fn in steps:
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in steps]
+    total = {name: 0.0 for name, _ in steps}
+    t0 = time.perf_counter()
+    for _ in range(count):
+        for (name, fn), (a, b) in zip(steps, events):
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        for (name, _), (a, b) in zip(steps, events):
+            total[name] += a.elapsed_time(b)
+    wall = (time.perf_counter() - t0) * 1e3 / count
+    return {k: v / count for k, v in total.items()}, wall
 
 
 def device_profile(fn, count, top=15):
@@ -151,28 +203,9 @@ def main(argv=None):
     h, w = args.shape
     images, im_info = synthetic_batch(args.batch, h, w, args.seed)
     images, im_info = images.to(det.device), im_info.to(det.device)
-    steps = stages(det, images, im_info)
-    for _, fn in steps:                  # warm-up: kernel build, cuDNN plans
-        fn()
-    torch.cuda.synchronize()
-
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in steps]
-    total = {name: 0.0 for name, _ in steps}
-    t0 = time.perf_counter()
-    for _ in range(args.count):
-        for (name, fn), (a, b) in zip(steps, events):
-            a.record()
-            fn()
-            b.record()
-        torch.cuda.synchronize()
-        for (name, _), (a, b) in zip(steps, events):
-            total[name] += a.elapsed_time(b)
-    wall = (time.perf_counter() - t0) * 1e3 / args.count
-    stage_ms = {k: v / args.count for k, v in total.items()}
-
+    stage_ms, wall = stage_times(stages(det, images, im_info), args.count)
     traced_ms, busy_ms, top, _ = device_profile(
-        lambda: det.detect(images, im_info), args.count)
+        lambda: det.serve(images, im_info), args.count)
     print(json.dumps({
         "card": card_name_and_power(), "shape": [h, w], "batch": args.batch,
         "count": args.count, "precision": precision(det.model),

@@ -1,7 +1,9 @@
-"""The config factories that the flagship configs are built on: a copy of
-`faster_fpn_config` and `standard_transforms` from
+"""The config factories that the ported configs are built on: a copy of
+`faster_fpn_config`, `standard_transforms` and `retina_fpn_config` from
 `simpledet_tpu/config_templates.py`, kept in the port so that it imports
-nothing of the JAX package.
+nothing of the JAX package. A neck or head that a retina config passes to
+`retina_fpn_config` (FreeAnchor, SEPC, NASFPN, EfficientNet) is recorded as
+the stand-in it is, and `dsl.build_detector` refuses it by name.
 
 `core.config.read_config` serves this module for the import
 `simpledet_tpu.config_templates` while a config runs. Like the config files,
@@ -267,3 +269,170 @@ def standard_transforms(is_train, short=800, long=1333, max_num_gt=100):
         ConvertImageFromHwcToChw(), RenameRecord(RenameParam.mapping),
     ]
     return transform, ["data", "im_info", "im_id", "rec_id"], []
+
+
+def retina_fpn_config(is_train, name, *, depth=50, variant="v1", fp16=False,
+                      neck=None, head=None, neck_args=None, num_class=81,
+                      scale_octaves=True, schedule_mult=1):
+    """RetinaNet-style single-stage grid (also FreeAnchor/SEPC via
+    neck/head overrides)."""
+    from mxnext.complicate import normalizer_factory
+
+    class General:
+        log_frequency = 10
+        batch_image = 2 if is_train else 1
+        loader_worker = 8
+
+    General.name = name.rsplit("/")[-1].rsplit(".")[-1]
+    General.fp16 = fp16
+
+    class KvstoreParam:
+        kvstore = "mesh"
+        batch_image = General.batch_image
+        gpus = list(range(8))
+        fp16 = General.fp16
+
+    class NormalizeParam:
+        normalizer = normalizer_factory(type="fixbn")
+
+    class BackboneParam:
+        fp16 = General.fp16
+        normalizer = NormalizeParam.normalizer
+
+    BackboneParam.depth = depth
+
+    class NeckParam:
+        fp16 = General.fp16
+        normalizer = NormalizeParam.normalizer
+
+    class RpnParam:
+        fp16 = General.fp16
+        normalizer = NormalizeParam.normalizer
+        batch_image = General.batch_image
+        sync_loss = True
+
+        class anchor_generate:
+            scale = (4 * 2 ** 0, 4 * 2 ** (1.0 / 3.0), 4 * 2 ** (2.0 / 3.0))
+            ratio = (0.5, 1.0, 2.0)
+            stride = (8, 16, 32, 64, 128)
+            image_anchor = None
+
+        class anchor_assign:
+            allowed_border = 9999
+            pos_thr = 0.5
+            neg_thr = 0.4
+            min_pos_thr = 0.0
+
+        class head:
+            conv_channel = 256
+            mean = None
+            std = None
+
+        class proposal:
+            pre_nms_top_n = 1000
+            post_nms_top_n = None
+            nms_thr = None
+            min_bbox_side = None
+            min_det_score = 0.05
+
+        class focal_loss:
+            alpha = 0.25
+            gamma = 2.0
+
+    RpnParam.num_class = num_class
+
+    class BboxParam:
+        pass
+
+    class RoiParam:
+        pass
+
+    class DatasetParam:
+        if is_train:
+            image_set = ("coco_train2017",)
+        else:
+            image_set = ("coco_val2017",)
+
+    from models.retinanet import builder as retina_builder
+    from models.FPN import builder as fpn_builder
+    bb_name = {
+        ("v1", 50): "MSRAResNet50V1FPN", ("v1", 101): "MSRAResNet101V1FPN",
+        ("v1b", 50): "ResNet50V1bFPN", ("v1b", 101): "ResNet101V1bFPN",
+        ("v1b", 152): "ResNet152V1bFPN",
+    }[(variant, depth)]
+    backbone_cls = getattr(retina_builder, bb_name, None) or \
+        getattr(fpn_builder, bb_name)
+    neck = neck or retina_builder.RetinaNetNeck
+    head = head or retina_builder.RetinaNetHead
+    detector = retina_builder.RetinaNet()
+
+    bb = backbone_cls(BackboneParam)
+    nk = neck(NeckParam) if neck_args is None else neck(NeckParam, neck_args)
+    hd = head(RpnParam)
+    if is_train:
+        train_sym = detector.get_train_symbol(bb, nk, hd)
+        test_sym = None
+    else:
+        train_sym = None
+        test_sym = detector.get_test_symbol(bb, nk, hd)
+
+    class ModelParam:
+        train_symbol = train_sym
+        test_symbol = test_sym
+        rpn_test_symbol = None
+        from_scratch = False
+        random = True
+        memonger = False
+
+        class pretrain:
+            epoch = 0
+            fixed_param = ["conv0", "stage1", "scale", "bias"]
+
+    ModelParam.pretrain.prefix = f"pretrain_model/resnet-{variant}-{depth}"
+
+    n_dev_img = len(KvstoreParam.gpus) * KvstoreParam.batch_image
+
+    class OptimizeParam:
+        class optimizer:
+            type = "sgd"
+            lr = 0.005 / 8 * n_dev_img
+            momentum = 0.9
+            wd = 0.0001
+            clip_gradient = None
+
+        class schedule:
+            begin_epoch = 0
+            end_epoch = 6 * schedule_mult
+            lr_iter = [60000 * 16 * schedule_mult // n_dev_img,
+                       80000 * 16 * schedule_mult // n_dev_img]
+            iter_per_epoch = 90000 * 16 // n_dev_img // 6
+
+        class warmup:
+            type = "gradual"
+            lr = 0.005 / 8 * n_dev_img / 3.0
+            iter = 500
+
+    class TestParam:
+        min_det_score = 0
+        max_det_per_image = 100
+        process_roidb = lambda x: x          # noqa: E731
+        process_output = lambda x, y: x      # noqa: E731
+
+        class model:
+            epoch = 6 * schedule_mult
+
+        class nms:
+            type = "nms"
+            thr = 0.5
+
+        class coco:
+            annotation = "data/coco/annotations/instances_val2017.json"
+
+    TestParam.model.prefix = f"experiments/{General.name}/checkpoint"
+
+    transform, data_name, label_name = standard_transforms(is_train)
+    import core.detection_metric as metric
+    metric_list = [metric.ScalarLoss("ClsLoss", ["retina_cls_loss"], [])]
+    return (General, KvstoreParam, RpnParam, RoiParam, BboxParam,
+            DatasetParam, ModelParam, OptimizeParam, TestParam,
+            transform, data_name, label_name, metric_list)

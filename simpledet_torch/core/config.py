@@ -22,10 +22,14 @@ trainer, the loader and the CLIs read. The symbol's components are placed
 under the names of the detector's get_*_symbol arguments in the JAX DSL
 (`ROLES`: `bbox_head_2nd` and `bbox_head_3rd` for CascadeRcnn,
 `mask_roi_extractor`, `mask_head` and `bbox_post_processor` for
-MaskFasterRcnn), every one of them, each with every param class it was
+MaskFasterRcnn; RetinaNet and RPN take a backbone, a neck and an
+`rpn_head`), every one of them, each with every param class it was
 given (`MaskFasterRcnn4ConvHead(BboxParam, MaskParam, MaskRoiParam)`); a
 detector without roles there, an argument given by keyword, or a component
-that has no role raises NotImplementedError.
+that has no role raises NotImplementedError. A config's subclass of a
+stand-in detector (`config/rpn_r50v1_fpn_1x.py`'s `class
+_RpnDetector(RPN)`, whose get_*_symbol call `RPN._assemble`) is recorded as
+its stand-in base.
 
 `patch_config_as_nothrow` and `load_config` are copies of the JAX package's
 (`simpledet_tpu/core/config.py`): a missing attribute on a config class reads
@@ -106,7 +110,9 @@ class Recorded:
 
     @property
     def name(self):
-        return type(self).__name__
+        """The stand-in class's name; for a config's subclass of one (the
+        RPN config's `class _RpnDetector(RPN)`), its stand-in base's."""
+        return _stand_in_base(type(self)).__name__
 
     @property
     def param(self):
@@ -120,6 +126,25 @@ class Recorded:
 
     def get_rpn_test_symbol(self, *components, **kwargs):
         return Symbol(self.name, "rpn_test", components, kwargs)
+
+
+class DetectorRecorded(Recorded):
+    """The base of the stand-in of a detector the port reads (one of
+    `ROLES`): as the JAX DSL's detectors do, it has `_assemble`."""
+
+    @classmethod
+    def _assemble(cls, *components, **kwargs):
+        """`Detector._assemble(backbone, neck, ...)`, which a config's
+        subclass of a detector calls from its own get_*_symbol (the RPN
+        config's `_RpnDetector(RPN)`): the symbol of the stand-in detector,
+        its kind filled in by read_config."""
+        return Symbol(_stand_in_base(cls).__name__, None, components, kwargs)
+
+
+def _stand_in_base(cls):
+    """The stand-in class that cls is or derives from (cls itself for a
+    recorder that is no stand-in, such as Norm2DImage)."""
+    return next((c for c in cls.__mro__ if "_stand_in" in c.__dict__), cls)
 
 
 @dataclass
@@ -167,8 +192,9 @@ def _stand_in_module(modname):
             if name[0].islower():        # `from models.FPN import builder`
                 made[name] = importlib.import_module(f"{modname}.{name}")
             else:
-                made[name] = type(name, (Recorded,), {"__module__": modname,
-                                                      "_stand_in": True})
+                base = DetectorRecorded if name in ROLES else Recorded
+                made[name] = type(name, (base,), {"__module__": modname,
+                                                  "_stand_in": True})
         return made[name]
 
     mod.__getattr__ = __getattr__
@@ -238,7 +264,7 @@ def _component(comp):
     is recorded as that shim class with its `depth`; any other override is
     not read by the port and raises."""
     mro = type(comp).__mro__
-    base = next(c for c in mro if "_stand_in" in c.__dict__)
+    base = _stand_in_base(type(comp))
     overrides = {}
     for c in reversed(mro[:mro.index(base)]):
         overrides.update({k: v for k, v in vars(c).items()
@@ -290,6 +316,10 @@ ROLES = {
     "MaskFasterRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
                        "mask_roi_extractor", "bbox_head", "mask_head",
                        "bbox_post_processor"),
+    # the JAX DSL names RetinaNet's third argument `head`; it is the RPN
+    # head's role, its param class is the config's RpnParam
+    "RetinaNet": ("backbone", "neck", "rpn_head"),
+    "RPN": ("backbone", "neck", "rpn_head"),
 }
 
 
@@ -344,6 +374,7 @@ def read_config(path, is_train=False):
     sym = getattr(model_param, f"{kind}_symbol")
     if not isinstance(sym, Symbol):
         raise NotImplementedError(f"{path}: no {kind} symbol")
+    sym.kind = sym.kind or kind         # a symbol made by `_assemble`
     components = place_components(sym)
     pixel_norm = next(((t.mean, t.std) for t in transform or ()
                        if isinstance(t, Norm2DImage)), None)

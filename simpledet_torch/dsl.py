@@ -16,6 +16,10 @@ backbone is normalised as its param class's normalizer says (`_norm`:
 FrozenBN when it names none); the FPN neck and the box head take no norm, as
 in the JAX package. A config's subclass of a backbone (`class
 TinyBackbone(MSRAResNet50V1FPN): depth = 18`) builds its base at its depth.
+RetinaNet takes `RetinaNetNeck` (256 wide) and `RetinaNetHead` (towers as
+wide as RpnParam.head.conv_channel), fp32 only; RPN takes the flagship's
+backbone, neck and RPN head and builds `RpnOnly` (the JAX package's RPN
+detector also hosts FCOS, whose neck and head the port does not have).
 """
 import torch
 
@@ -23,12 +27,14 @@ from simpledet_torch import resolve_device
 from simpledet_torch.core.config import read_config
 from simpledet_torch.models.cascade_rcnn import (CascadeRcnn,
                                                  is_class_agnostic)
-from simpledet_torch.models.faster_rcnn import FasterRcnn
+from simpledet_torch.models.faster_rcnn import FasterRcnn, RpnOnly
 from simpledet_torch.models.fpn import FPNNeck
 from simpledet_torch.models.heads import Bbox2fcHead
 from simpledet_torch.models.mask_rcnn import MaskFasterRcnn, MaskHead4Conv
 from simpledet_torch.models.norm import normalizer_factory
 from simpledet_torch.models.resnet import ResNet
+from simpledet_torch.models.retinanet import (RetinaNet, RetinaNetHead,
+                                              RetinaNetNeck, RetinaSubnets)
 from simpledet_torch.models.rpn import FPNRpnHead, RpnConvHead
 
 BACKBONES = {"MSRAResNet50V1FPN": 50, "MSRAResNet101V1FPN": 101}
@@ -46,6 +52,8 @@ SUPPORTED = {
                            bbox_head=("FPNBbox2fcHead",),
                            mask_head=("MaskFasterRcnn4ConvHead",),
                            bbox_post_processor=("BboxPostProcessor",)),
+    "RetinaNet": {"neck": ("RetinaNetNeck",), "rpn_head": ("RetinaNetHead",)},
+    "RPN": {"neck": ("FPNNeck",), "rpn_head": ("FPNRpnHead",)},
 }
 # roles that only the test symbol is given
 TEST_ONLY = ("bbox_post_processor",)
@@ -93,16 +101,32 @@ def _mask_head(comp):
     return MaskHead4Conv(p_bbox.num_class, 256, p_mask.dim_reduced or 256)
 
 
+def _retinanet(comps, backbone):
+    """RetinaNet from its neck's and head's param classes; fp32 only."""
+    for role in ("backbone", "neck", "rpn_head"):
+        if _dtype(comps[role].param) != torch.float32:
+            raise NotImplementedError(
+                f"the bf16 RetinaNet ({role} {comps[role].name} sets fp16) "
+                "is not ported yet")
+    head = RetinaNetHead(comps["rpn_head"].param)
+    subnets = RetinaSubnets(head.num_anchor, head.num_fg_class,
+                            head.p.head.conv_channel or 256, 256)
+    return RetinaNet(backbone, RetinaNetNeck(backbone.out_channels[1:], 256),
+                     subnets, head)
+
+
 def build_detector(spec, *, depth=None):
-    """FasterRcnn, CascadeRcnn or MaskFasterRcnn (on the CPU, weights not
-    yet initialised) from a ConfigSpec. `depth` overrides the backbone's
-    depth (tests use 18)."""
+    """FasterRcnn, CascadeRcnn, MaskFasterRcnn, RetinaNet or RpnOnly (on
+    the CPU, weights not yet initialised) from a ConfigSpec. `depth`
+    overrides the backbone's depth (tests use 18)."""
     comps = spec.components
     _require(spec.detector, comps)
 
     bb = comps["backbone"]
     backbone = ResNet(depth or bb.depth or BACKBONES[bb.name],
                       dtype=_dtype(bb.param), norm=_norm(bb.param))
+    if spec.detector == "RetinaNet":
+        return _retinanet(comps, backbone)
     neck = FPNNeck(backbone.out_channels, 256,
                    dtype=_dtype(comps["neck"].param))
     p_rpn = comps["rpn_head"].param
@@ -111,6 +135,8 @@ def build_detector(spec, *, depth=None):
     rpn = FPNRpnHead(p_rpn)
     rpn_module = RpnConvHead(rpn.num_anchor, p_rpn.head.conv_channel or 256,
                              256, dtype=p_rpn.dtype)
+    if spec.detector == "RPN":
+        return RpnOnly(backbone, neck, rpn_module, rpn)
     p_roi = comps["roi_extractor"].param
     in_features = p_roi.out_size ** 2 * 256
     if spec.detector == "CascadeRcnn":

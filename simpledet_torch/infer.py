@@ -5,7 +5,11 @@ detector from a config (seeded random weights), normalises uint8 NHWC batches
 on the device, runs the test forward and the per-class NMS, and returns
 boxes, scores and classes per image; a Mask R-CNN runs its NMS inside its
 test forward and adds each kept box's class's mask probabilities (pasting
-them into the image is eval work: `eval/segm.py`).
+them into the image is eval work: `eval/segm.py`). A RetinaNet's test
+forward gives the top candidates of each level, which the per-class NMS
+takes as it takes a Faster R-CNN's rois. An RPN-only config
+(`config/rpn_r50v1_fpn_1x.py`) serves proposals (`Detector.propose`), which
+this CLI then times.
 
     python -m simpledet_torch.infer --config config/faster_r50v1_fpn_1x.py \
         --shape 800 1333 --batch 2 --count 20
@@ -21,6 +25,7 @@ import torch
 
 from simpledet_torch.dsl import detector_from_config
 from simpledet_torch.eval.postprocess import per_class_nms
+from simpledet_torch.models.faster_rcnn import RpnOnly
 from simpledet_torch.models.mask_rcnn import MaskFasterRcnn
 from simpledet_torch.ops.image import device_normalize
 
@@ -38,18 +43,35 @@ class Detector:
         self.nms_thr = (t.nms.thr if t.nms else None) or 0.5
         self.max_det = t.max_det_per_image or 100
         self.has_masks = isinstance(self.model, MaskFasterRcnn)
+        self.proposals_only = isinstance(self.model, RpnOnly)
+
+    def _inputs(self, images, im_info):
+        images = torch.as_tensor(images).to(self.device, non_blocking=True)
+        im_info = torch.as_tensor(im_info, dtype=torch.float32).to(
+            self.device, non_blocking=True)
+        if self.spec.pixel_norm is not None:
+            images = device_normalize(images, im_info, *self.spec.pixel_norm)
+        return images, im_info
+
+    @torch.no_grad()
+    def propose(self, images, im_info):
+        """The rpn_test forward (a two-stage detector's or an RpnOnly's):
+        (proposal [B, post, 4], proposal_score [B, post]), padded rows
+        scored NEG_INF."""
+        images, im_info = self._inputs(images, im_info)
+        out = self.model(images.float(), im_info, mode="rpn_test")
+        return out["proposal"], out["proposal_score"]
 
     @torch.no_grad()
     def detect(self, images, im_info, *, score_thr=None):
         """images [B, H, W, 3] uint8, im_info [B, 3] = (h', w', scale) ->
         (boxes [B, max_det, 4], scores, classes, valid), padded rows
         marked by valid = False; a Mask R-CNN adds mask_prob [B, max_det,
-        M, M]."""
-        images = torch.as_tensor(images).to(self.device, non_blocking=True)
-        im_info = torch.as_tensor(im_info, dtype=torch.float32).to(
-            self.device, non_blocking=True)
-        if self.spec.pixel_norm is not None:
-            images = device_normalize(images, im_info, *self.spec.pixel_norm)
+        M, M]. An RPN-only model has no detections: `propose`."""
+        if self.proposals_only:
+            raise NotImplementedError("an RPN-only model serves proposals: "
+                                      "Detector.propose")
+        images, im_info = self._inputs(images, im_info)
         thr = self.score_thr if score_thr is None else score_thr
         if self.has_masks:
             out = self.model(images.float(), im_info, mode="test",
@@ -60,6 +82,13 @@ class Detector:
         return per_class_nms(out["cls_score"], out["bbox_xyxy"],
                              score_thr=thr, nms_thr=self.nms_thr,
                              max_det=self.max_det)
+
+    def serve(self, images, im_info):
+        """One request as the config serves it: an RPN-only model's
+        proposals (`propose`), any other model's detections (`detect`)."""
+        if self.proposals_only:
+            return self.propose(images, im_info)
+        return self.detect(images, im_info)
 
     def __call__(self, images, im_info, **kw):
         """List of per-image dicts {"boxes", "scores", "classes"} and, for a
@@ -125,18 +154,19 @@ def main(argv=None):
         if det.device.type == "cuda":
             torch.cuda.synchronize(det.device)
 
-    det.detect(images, im_info)          # warm-up: kernel build, cuDNN plans
+    det.serve(images, im_info)      # warm-up: kernel build, cuDNN plans
     sync()
     t0 = time.perf_counter()
     for _ in range(args.count):
-        det.detect(images, im_info)
+        det.serve(images, im_info)
     sync()
     dt = time.perf_counter() - t0
     n_img = args.count * args.batch
     where = card_name_and_power() if det.device.type == "cuda" else "cpu"
+    what = ("proposals" if det.proposals_only else "per-class NMS"
+            + (" and the mask head" if det.has_masks else ""))
     print(f"{dt / n_img * 1000:.3f} ms per image ({n_img / dt:.2f} img/s) "
-          f"at {h}x{w}, batch {args.batch}, incl. per-class NMS"
-          f"{' and the mask head' if det.has_masks else ''}, "
+          f"at {h}x{w}, batch {args.batch}, incl. {what}, "
           f"{precision(det.model)}, on {where}")
 
 

@@ -1,5 +1,6 @@
 """Faster R-CNN (counterpart of simpledet_tpu/models/faster_rcnn.py::FasterRcnn
-with mode "train", "test" and "rpn_test").
+with mode "train", "test" and "rpn_test") and the RPN-only detector
+(`RpnOnly`).
 
 Input is the normalised NHWC batch [B, H, W, 3] float32 that the JAX package
 takes; it is viewed as NCHW in channels_last memory format at no cost, so
@@ -44,6 +45,44 @@ def deterministic_proposals(gt_bbox, n_prop):
     out = torch.stack([cx - 0.5 * (w - 1.0), cy - 0.5 * (h - 1.0),
                        cx + 0.5 * (w - 1.0), cy + 0.5 * (h - 1.0)], dim=-1)
     return out.clamp(min=0.0)
+
+
+class RpnOnly(nn.Module):
+    """The RPN-only detector (counterpart of
+    simpledet_tpu/models/faster_rcnn.py::RpnOnly): backbone -> neck ->
+    rpn_module; mode "train" returns the RPN's (losses, aux), any other
+    mode {"proposal" [B, post, 4], "proposal_score" [B, post]} without
+    autograd. deterministic_sampling gives the anchor sampler `arange`
+    priorities (parity tests)."""
+
+    def __init__(self, backbone, neck, rpn_module, rpn, *,
+                 deterministic_sampling=False):
+        super().__init__()
+        self.backbone = backbone
+        self.neck = neck
+        self.rpn_module = rpn_module
+        self.rpn = rpn
+        self.deterministic_sampling = deterministic_sampling
+
+    def pyramid(self, data):
+        return self.neck(self.backbone(data.permute(0, 3, 1, 2)))
+
+    def forward(self, data, im_info, gt_bbox=None, mode="test", *,
+                generator=None):
+        if mode == "train":
+            if gt_bbox is None or generator is None:
+                raise ValueError("train mode needs gt_bbox and a generator")
+            rpn_out = self.rpn_module(self.pyramid(data))
+            return self.rpn.loss(generator, rpn_out, gt_bbox, im_info,
+                                 deterministic=self.deterministic_sampling)
+        with torch.no_grad():
+            rpn_out = self.rpn_module(self.pyramid(data))
+            boxes, scores = self.rpn.proposals(rpn_out, im_info)
+        return {"proposal": boxes, "proposal_score": scores}
+
+    def init_weights(self, gen):
+        for m in (self.backbone, self.neck, self.rpn_module):
+            m.init_weights(gen)
 
 
 class FasterRcnn(nn.Module):

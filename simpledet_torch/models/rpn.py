@@ -58,9 +58,9 @@ class RpnConvHead(nn.Module):
             m.bias.zero_()
 
 
-class FPNRpnHead:
-    """Proposal generation from the head's outputs; `p` is the nothrow
-    RpnParam of the config."""
+class AnchorHead:
+    """The anchors of an RpnParam's anchor_generate (strides, scales,
+    ratios), each level's grid made once per feature shape and device."""
 
     def __init__(self, p):
         self.p = p
@@ -79,6 +79,11 @@ class FPNRpnHead:
                                         self.ratios)
             self._anchors[key] = torch.from_numpy(grid).to(device)
         return self._anchors[key]
+
+
+class FPNRpnHead(AnchorHead):
+    """Proposal generation from the head's outputs; `p` is the nothrow
+    RpnParam of the config."""
 
     def loss(self, gen, level_outputs, gt_bbox, im_info, deterministic=False):
         """(losses, aux): softmax CE over the sampled anchors, divided by

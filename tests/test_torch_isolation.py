@@ -45,6 +45,18 @@ def test_reading_and_building_imports_no_jax():
         "    mask, _ = detector_from_config(f'config/{cfg}.py',"
         " device='cpu', is_train=tr)\n"
         "    assert mask.mask_head is not None\n"
+        # RetinaNet and the RPN-only detector: read, and built at depth 18
+        # without the seeded init (no new full-width build)
+        "from simpledet_torch.core.config import read_config\n"
+        "from simpledet_torch.dsl import build_detector\n"
+        "import simpledet_torch.rpn_test, simpledet_torch.models.retinanet\n"
+        "import simpledet_torch.targets.retina_target\n"
+        "for cfg in ('retina_r50v1_fpn_1x', 'retina_r101v1_fpn_1x', "
+        "'retina_micro_test', 'converge_retina', 'rpn_r50v1_fpn_1x'):\n"
+        "    for tr in (False, True):\n"
+        "        net = build_detector(read_config(f'config/{cfg}.py', tr), "
+        "depth=18)\n"
+        "        assert type(net).__name__ in ('RetinaNet', 'RpnOnly'), cfg\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(sum(p.numel() for p in model.parameters()))\n")

@@ -305,9 +305,12 @@ def test_flagship_config_builds_and_maps_all_leaves():
 
 
 @pytest.mark.parametrize("path,what", [
-    # a config template that the port's copy does not hold
-    ("config/retina_r101v1_fpn_1x.py", "retina_fpn_config"),
-    ("config/retina_r50v1_fpn_1x.py", "RetinaNet"),
+    # FCOS on the RPN detector: its neck is met first (RetinaNet and the
+    # RPN-only detector are read and built since they were ported)
+    ("config/fcos_r50v1_fpn_1x.py", "FCOSFPN"),
+    # retina_fpn_config with a head override the port does not have
+    ("config/FreeAnchor/free_anchor_r50v1_fpn_1x.py",
+     "FreeAnchorRetinaNetHead"),
     # Mask-Scoring R-CNN: a detector whose components the reader has no
     # roles for (Mask R-CNN itself is read and built since it was ported)
     ("config/ms_r50v1_fpn_1x.py", "MaskScoringFasterRcnn"),
