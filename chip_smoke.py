@@ -146,6 +146,34 @@ Phases, each fatal on error:
      call, the breakdown; train it as phase N does; then
      `simpledet_torch.rpn_test` on phase C's checkpoint: best Recall@N at
      IoU 0.5 >= 0.95 (the JAX package's tests/test_convergence.py gate);
+  then, each beside the flagship's serving and training numbers of the same
+  call (phases 4 and 5):
+  R. config/resnet_v1b/mask_r50v1b_fpn_1x.py (Mask R-CNN on ResNet-50 v1b)
+     served as phase I serves, FrozenBN folded from one request, with the
+     request's breakdown and the device's idle share; trained as phase J
+     trains (idle share of 3 traced steps); K1 with codes and K2 at 7 x 7
+     and 14 x 14 on one more step's rois and K3 on its proposals' NMS calls,
+     against their plain versions;
+  S. config/resnet_v1b/faster_r50v1d_fpn_1x.py (the v1d deep stem and
+     average-pool shortcut) served and trained as phases 4 and 5, FrozenBN
+     folded, at 800 x 1344: at the config's own 800 x 1333 the average-pool
+     shortcut floors 167 columns to 83 where the main branch gives 84, in
+     the JAX package as in the port;
+  T. config/resnet_v1b/faster_r152v1b_fpn_1x.py and retina_r152v1b_fpn_1x.py
+     served as phases 4 and M, FrozenBN folded, with the timed requests'
+     peak device memory;
+  U. one training step (after a warm-up step) at full width of
+     config/scratch/mask_r50v1b_fpn_gn_scratch_2x.py (GroupNorm in every
+     backbone norm) and, under `torchrun --nproc_per_node 1` (this script's
+     --scratch-rank mode, a 1-rank NCCL group, DDP), of
+     mask_r50v1b_fpn_bn_scratch_2x.py (SyncBN): finite losses, the kernels
+     launched, no norm outside the backbone;
+  V. in a fresh temporary directory: config/converge_mask.py's recipe with
+     its TinyBackbone's base swapped for ResNet50V1dFPN (depth 18), written
+     there, at half its lr (CONVERGE_MASK_V1D_LR: at its own, half the card
+     runs diverged), 480 steps at batch 8 on 16 ellipse images through the
+     train CLI and `simpledet_torch.mask_test`: phase L's gates; the JAX
+     package has no record for this recipe;
   10. print each phase's wall time as it ends, the `kernels` JSON line
      (launches per path: serving, training, serving_bf16, training_bf16,
      train_cli, eval_cli, serving_cascade, training_cascade,
@@ -154,10 +182,13 @@ Phases, each fatal on error:
      retina_cli, training_syncbn, train_cli_syncbn, eval_cli_syncbn,
      converge, converge_eval, converge_cascade, converge_cascade_eval,
      converge_mask, converge_mask_eval, converge_retina, serving_rpn_only,
-     training_rpn_only, rpn_test; times at converge_test's shapes, on the
-     cascade's, the Mask R-CNN's, RetinaNet's (160 x 5000), converge_retina's
-     and the RPN-only detector's inputs), the card's line, and
-     {"ok": true, ...}.
+     training_rpn_only, rpn_test, serving_mask_v1b, training_mask_v1b,
+     serving_faster_v1d, training_faster_v1d, serving_faster_r152,
+     serving_retina_r152, training_mask_gn_scratch, training_mask_bn_scratch,
+     converge_mask_v1d, converge_mask_v1d_eval; times at converge_test's
+     shapes, on the cascade's, the Mask R-CNN's, RetinaNet's (160 x 5000),
+     converge_retina's, the RPN-only detector's, the v1b Mask R-CNN's and
+     converge_mask_v1d's inputs), the card's line, and {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -732,24 +763,38 @@ def plain_nms(boxes, valid, thr):
                       for i in range(0, boxes.shape[0], step)])
 
 
-def serve(dev, smi, config=CONFIG, path="serving"):
-    """Requests through the config's Detector (phase 4's checks). Returns
-    (launch counts, ms per image, the Detector)."""
+def serve(dev, smi, config=CONFIG, path="serving", fold=False, stats=None):
+    """Requests through the config's Detector (phase 4's checks); with
+    `fold`, the first request's statistics folded into the backbone's
+    FrozenBN first (`models/norm.py::fold_batch_stats`); `stats`, when
+    given, gets the peak device memory of the timed requests (peak_gib).
+    Returns (launch counts, ms per image, the Detector)."""
     from simpledet_torch.infer import Detector, precision, synthetic_batch
     from simpledet_torch.kernels import roi_align as kroi
+    from simpledet_torch.models.norm import fold_batch_stats
 
     det = Detector(config, device=dev, seed=0)
     how = precision(det.model)
     requests = [synthetic_batch(B, H, W, seed) for seed in range(4)]
     requests = [(x.to(dev), i) for x, i in requests]
+    if fold:
+        data, _ = det._inputs(*requests[0])
+        fold_batch_stats(det.model.backbone,
+                         data.float().permute(0, 3, 1, 2))
+        how += ", FrozenBN folded from one request"
     det.detect(*requests[0])                       # warm-up: cuDNN plans
     torch.cuda.synchronize()
 
     zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     results = [det.detect(x, i) for x, i in requests[1:]]
     torch.cuda.synchronize()
     ms_img = (time.perf_counter() - t0) * 1e3 / (B * (len(requests) - 1))
+    if stats is not None:
+        stats["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"{path}: peak {stats['peak_gib']:.2f} GiB allocated over the "
+            "timed requests")
     live = det.detect(*requests[0], score_thr=0.0)
     torch.cuda.synchronize()
     per_request = stage_count(det.model)
@@ -1672,24 +1717,31 @@ def by_size(calls):
     return out
 
 
-def serve_mask(dev, smi):
+def serve_mask(dev, smi, config=CONFIG_MASK, path="serving_mask",
+               fold=False, breakdown=False):
     """Phase I: phase 4 on config/mask_r50v1_fpn_1x.py (2 RoIAlign launches
     a request, at 7 x 7 and at 14 x 14 on the kept boxes; detections and
     mask_prob against the plain-version path), then the kernels on one
     request's own inputs. Returns (launch counts, ms per image, the
-    request's calls by size, readings on its inputs)."""
+    request's calls by size, readings on its inputs), and with `breakdown`
+    the request's `request_breakdown`. Phase R: the same on the v1b config,
+    FrozenBN folded (`serve`'s fold), with the breakdown."""
     from simpledet_torch.infer import synthetic_batch
 
-    counts, ms_img, det = serve(dev, smi, CONFIG_MASK, "serving_mask")
+    counts, ms_img, det = serve(dev, smi, config, path, fold=fold)
     images, im_info = synthetic_batch(B, H, W, 1)
+    images = images.to(dev)
     with recording() as calls:
-        det.detect(images.to(dev), im_info)
+        det.detect(images, im_info)
     torch.cuda.synchronize()
     sizes = by_size(calls)
-    log(f"serving_mask: one request's kernel calls {sizes}")
+    log(f"{path}: one request's kernel calls {sizes}")
     if sizes != {"roi_align_fwd_7": 1, "roi_align_fwd_14": 1, "nms": 2}:
-        raise AssertionError(f"serving_mask: kernel calls {sizes}")
-    return counts, ms_img, sizes, check_serving_calls(calls, "serving_mask")
+        raise AssertionError(f"{path}: kernel calls {sizes}")
+    out = (counts, ms_img, sizes, check_serving_calls(calls, path))
+    if breakdown:
+        out += (request_breakdown(det, path, images, im_info),)
+    return out
 
 
 def mask_target_reading(calls, gt_poly):
@@ -2632,7 +2684,8 @@ def converge(dev, smi, config=CONFIG_CONVERGE, path="converge",
     return train_counts, eval_counts, kernels, result
 
 
-def converge_mask(dev, smi, bwd_sets):
+def converge_mask(dev, smi, bwd_sets, config=CONFIG_CONVERGE_MASK,
+                  path="converge_mask", record=JAX_CONVERGE_MASK):
     """Phase L: config/converge_mask.py (depth-18 FPN, SyncBN, 4 classes,
     the mask branch at 14 x 14 / 28 x 28) from scratch at batch 8 for
     CONVERGE_MASK_EPOCHS epochs (480 steps) on 16 ellipse images and their
@@ -2642,36 +2695,39 @@ def converge_mask(dev, smi, bwd_sets):
     (`mask_roi_kernels`); then simpledet_torch.mask_test on the train set.
     The gates of the JAX package's tests/test_converge_mask.py: finite
     losses, last-20 mean under half the first-20, box AP >= 0.6, segm AP >=
-    0.6, segm AP50 >= 0.95; read beside the JAX record."""
+    0.6, segm AP50 >= 0.95; read beside the JAX record. Phase V: the same
+    on `config` (the recipe on a v1d backbone, for which the JAX package has
+    no record: `record` None)."""
     from simpledet_torch import detection_train, mask_test
     from simpledet_torch.core.config import read_config
     from simpledet_torch.data.loader import Loader
     from simpledet_torch.data.roidb import load_roidb
     from simpledet_torch.data.transforms import from_config
 
-    record = JAX_CONVERGE_MASK
     history = []
     zero_counts()
     t0 = time.perf_counter()
-    trainer = detection_train.train_net(CONFIG_CONVERGE_MASK, device=dev,
+    trainer = detection_train.train_net(config, device=dev,
                                         loss_history=history)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    train_counts = read_counts("converge_mask", (
+    train_counts = read_counts(path, (
         "nms", "roi_align_fwd", "roi_align_bwd"))
     total = np.array([h["total_loss"] for h in history])
     first, last = float(total[:20].mean()), float(total[-20:].mean())
-    log(f"converge_mask: {len(total)} steps at batch 8 in {seconds:.1f} s "
+    jax_line = (f"the JAX record: {record['first20']:.2f}, "
+                f"{record['last20']:.2f}" if record else
+                "the JAX package has no record for this recipe")
+    log(f"{path}: {len(total)} steps at batch 8 in {seconds:.1f} s "
         f"(incl. start-up, loader and logging) on {smi}; mean total loss "
-        f"first 20 {first:.4f}, last 20 {last:.4f} (the JAX record: "
-        f"{record['first20']:.2f}, {record['last20']:.2f}); mask loss first "
+        f"first 20 {first:.4f}, last 20 {last:.4f} ({jax_line}); mask loss first "
         f"20 {np.mean([h['mask_loss'] for h in history[:20]]):.4f}, last 20 "
         f"{np.mean([h['mask_loss'] for h in history[-20:]]):.4f}")
     if len(total) != 4 * CONVERGE_MASK_EPOCHS or not np.isfinite(total).all():
-        raise AssertionError(f"converge_mask: {len(total)} steps, finite "
+        raise AssertionError(f"{path}: {len(total)} steps, finite "
                              f"{bool(np.isfinite(total).all())}")
 
-    spec = read_config(CONFIG_CONVERGE_MASK, is_train=True)
+    spec = read_config(config, is_train=True)
     roidb = load_roidb(spec.dataset.image_set, spec.dataset.cache_dir)
     batch = next(iter(Loader(roidb, from_config(spec.transform), 8,
                              shuffle=False, num_workers=0,
@@ -2684,7 +2740,7 @@ def converge_mask(dev, smi, bwd_sets):
                      batch["gt_poly"])
     torch.cuda.synchronize()
     readings, k1, k2 = mask_roi_kernels(dev, calls, bwd_sets,
-                                        "converge_mask (trained)")
+                                        f"{path} (trained)")
     kernels["roi_align_fwd"]["trained_14"] = k1
     kernels["roi_align_bwd"]["trained_14"] = dict(k2, **{
         k: readings["14"][k] for k in ("busiest_tile_rois", "mean_tile_rois",
@@ -2693,23 +2749,24 @@ def converge_mask(dev, smi, bwd_sets):
 
     stats = {}
     zero_counts()
-    summaries = mask_test.mask_test_net(CONFIG_CONVERGE_MASK, device=dev,
+    summaries = mask_test.mask_test_net(config, device=dev,
                                         stats=stats)
     torch.cuda.synchronize()
-    eval_counts = read_counts("converge_mask_eval", ("nms", "roi_align_fwd"))
+    eval_counts = read_counts(f"{path}_eval", ("nms", "roi_align_fwd"))
     box, segm = summaries["bbox"], summaries["segm"]
-    log(f"converge_mask eval: {stats['images']} images at batch "
+    log(f"{path} eval: {stats['images']} images at batch "
         f"{stats['batch']}; box AP {box['AP']:.3f}, segm AP "
         f"{segm['AP']:.3f}, AP50 {segm['AP50']:.3f}, AP75 {segm['AP75']:.3f}"
-        f" (the JAX package's record, {record['chip']}, 480 steps: box AP "
-        f"{record['bbox_AP']:.3f}, segm AP {record['segm_AP']:.3f}, segm "
-        f"AP75 {record['segm_AP75']:.3f})")
+        + (f" (the JAX package's record, {record['chip']}, 480 steps: box AP"
+           f" {record['bbox_AP']:.3f}, segm AP {record['segm_AP']:.3f}, segm"
+           f" AP75 {record['segm_AP75']:.3f})" if record else
+           " (the JAX package has no record for this recipe)"))
     gates = {"last 20 < first 20 / 2": last < 0.5 * first,
              "box AP >= 0.6": box["AP"] >= 0.6,
              "segm AP >= 0.6": segm["AP"] >= 0.6,
              "segm AP50 >= 0.95": segm["AP50"] >= 0.95}
     if not all(gates.values()):
-        raise AssertionError(f"converge_mask gates failed: {gates}")
+        raise AssertionError(f"{path} gates failed: {gates}")
     result = dict(steps=len(total), first20=first, last20=last,
                   seconds=seconds, bbox_AP=box["AP"], segm_AP=segm["AP"],
                   segm_AP50=segm["AP50"], segm_AP75=segm["AP75"])
@@ -2753,9 +2810,276 @@ def syncbn_phases(dev, smi, bwd_sets):
     return out
 
 
+# ------------------------------------------- phases R, S, T, U and V
+
+V1B = os.path.join(REPO, "config", "resnet_v1b")
+CONFIG_MASK_V1B = os.path.join(V1B, "mask_r50v1b_fpn_1x.py")
+CONFIG_FASTER_V1D = os.path.join(V1B, "faster_r50v1d_fpn_1x.py")
+CONFIG_FASTER_R152 = os.path.join(V1B, "faster_r152v1b_fpn_1x.py")
+CONFIG_RETINA_R152 = os.path.join(V1B, "retina_r152v1b_fpn_1x.py")
+CONFIG_MASK_GN = os.path.join(REPO, "config", "scratch",
+                              "mask_r50v1b_fpn_gn_scratch_2x.py")
+CONFIG_MASK_BN = os.path.join(REPO, "config", "scratch",
+                              "mask_r50v1b_fpn_bn_scratch_2x.py")
+# phase V's recipe: config/converge_mask.py with its TinyBackbone's base
+# swapped for the v1d backbone, written into the phase's directory
+CONFIG_CONVERGE_MASK_V1D = "config/converge_mask_v1d.py"
+# ... at half the recipe's lr (its CONVERGE_MASK_LR override): at 0.005, 3
+# of 6 runs on an H100 diverged between steps 80 and 120 (losses above
+# 1e10, then AP 0) and 3 passed the gates; at 0.0025 all 3 passed
+CONVERGE_MASK_V1D_LR = "0.0025"
+
+
+def check_variant(model, variant, path):
+    """The backbone is the variant the config names: v1d's three 3 x 3
+    stem convs and its average-pool shortcuts, v1b's stride on conv2."""
+    bb = model.backbone
+    unit = bb.stage2_unit1
+    stem = [tuple(getattr(bb, n).weight.shape[2:]) for n in bb.stem]
+    want = [(3, 3)] * 3 if variant == "v1d" else [(7, 7)]
+    if bb.variant != variant or stem != want or unit.conv2.stride != (2, 2) \
+            or unit.avg_down != (variant == "v1d"):
+        raise AssertionError(f"{path}: backbone {bb.variant}, stem {stem}")
+    log(f"{path}: ResNet-{variant}, stem {bb.stem} {stem}, stride on conv2"
+        + (", average-pool shortcuts" if variant == "v1d" else ""))
+
+
+def mask_v1b_phase(dev, smi):
+    """Phase R: config/resnet_v1b/mask_r50v1b_fpn_1x.py served (phase I's
+    checks, FrozenBN folded from one request, the request's breakdown and
+    the device's idle share) and trained (phase J's checks: 2 warm-up and 5
+    timed steps, the kernel step against the plain step, the idle share of
+    3 traced steps); K1 with codes and K2 at 7 x 7 and 14 x 14 on one more
+    recorded step's rois, K3 on its proposals' NMS calls, each against its
+    plain version."""
+    out = {"serving": serve_mask(dev, smi, CONFIG_MASK_V1B,
+                                 "serving_mask_v1b", fold=True,
+                                 breakdown=True)}
+    out["training"] = train(dev, smi, CONFIG_MASK_V1B, "training_mask_v1b",
+                            profile=True, record=True)
+    calls = out["training"][3].pop("calls")
+    log(f"training_mask_v1b: one step's kernel calls {by_size(calls)}")
+    out["roi"] = mask_roi_kernels(dev, calls, None, "training_mask_v1b")
+    out["nms"] = nms_reading(calls, "training_mask_v1b")
+    return out
+
+
+# v1d's average-pool shortcut floors an odd side where the 3 x 3 / 2 main
+# branch ceils: along the config's own 1333-wide pad, stage 3's first unit
+# meets 167 columns (83 against 84), and the JAX package's backbone fails
+# there as the port's does (tests/test_torch_resnet_variants.py). Phase S
+# runs at 1333 rounded up to a multiple of 32.
+V1D_W = 1344
+
+
+def faster_v1d_phase(dev, smi):
+    """Phase S: config/resnet_v1b/faster_r50v1d_fpn_1x.py (the deep stem and
+    the average-pool shortcut) served and trained as phases 4 and 5 are,
+    FrozenBN folded from one batch, at H x V1D_W."""
+    global W
+    saved, W = W, V1D_W
+    try:
+        counts, ms_img, det = serve(dev, smi, CONFIG_FASTER_V1D,
+                                    "serving_faster_v1d", fold=True)
+        check_variant(det.model, "v1d", "serving_faster_v1d")
+        del det
+        return (counts, ms_img), train(dev, smi, CONFIG_FASTER_V1D,
+                                       "training_faster_v1d")
+    finally:
+        W = saved
+
+
+def r152_phase(dev, smi):
+    """Phase T: config/resnet_v1b/faster_r152v1b_fpn_1x.py and
+    retina_r152v1b_fpn_1x.py served as phase 4 serves, FrozenBN folded from
+    one request, with the peak device memory of the timed requests.
+    Returns {path: (launch counts, ms per image, peak GiB)}."""
+    out = {}
+    for config, path in ((CONFIG_FASTER_R152, "serving_faster_r152"),
+                         (CONFIG_RETINA_R152, "serving_retina_r152")):
+        torch.cuda.empty_cache()
+        stats = {}
+        counts, ms_img, det = serve(dev, smi, config, path, fold=True,
+                                    stats=stats)
+        if [len(u) for u in det.model.backbone.units] != [3, 8, 36, 3]:
+            raise AssertionError(f"{path}: not an R152")
+        check_variant(det.model, "v1b", path)
+        out[path] = (counts, ms_img, stats["peak_gib"])
+        del det
+    return out
+
+
+def scratch_step(dev, smi, config, path):
+    """One training step of a from-scratch Mask R-CNN config at full width
+    (batch 2, 800 x 1333, 20 gt boxes an image with their ellipses) after a
+    warm-up step: finite losses, the kernels launched, every backbone norm
+    the config's (GroupNorm or SyncBN) and no norm outside the backbone,
+    nothing frozen. Returns (launch counts, ms of the step, its losses,
+    norm layers)."""
+    from simpledet_torch.core.train import Trainer
+    from simpledet_torch.models.norm import GroupNorm, SyncBN
+    from simpledet_torch.train import synthetic_gt_poly, synthetic_train_batch
+
+    trainer = Trainer.from_config(config, device=dev, seed=0)
+    model = trainer.model
+    norms = [n for n, m in model.named_modules()
+             if isinstance(m, (GroupNorm, SyncBN))]
+    kinds = {type(m).__name__ for m in model.modules()
+             if isinstance(m, (GroupNorm, SyncBN))}
+    if not norms or any(not n.startswith("backbone.") for n in norms) or \
+            len(kinds) != 1 or not all(trainer.trainable.values()):
+        raise AssertionError(f"{path}: norms {kinds} at {norms[:3]}..., "
+                             f"{sum(not t for t in trainer.trainable.values())}"
+                             " frozen")
+    images, im_info, gt = synthetic_train_batch(B, H, W, 0)
+    batch = (images.to(dev), im_info, gt, synthetic_gt_poly(gt))
+    check = loss_check(path)
+    check(0, trainer.step(*batch))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = check(1, trainer.step(*batch))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(path, ("nms", "roi_align_fwd", "roi_align_bwd"))
+    log(f"{path}: {len(norms)} {kinds.pop()} layers, all in the backbone, "
+        f"nothing frozen; step 1 {ms:.3f} ms at {H}x{W}, batch {B}, fp32 "
+        f"without TF32, on {smi}")
+    return counts, ms, losses, len(norms)
+
+
+def scratch_rank(out):
+    """One torchrun rank of phase U: `scratch_step` on the SyncBN scratch
+    config in the process group that torchrun's environment describes (a
+    1-rank NCCL group, the model in DDP); its result into the json file
+    `out`."""
+    from simpledet_torch.parallel import dist
+
+    dev = dist.init_from_env("cuda")
+    smi = environment()
+    try:
+        counts, ms, losses, n_norm = scratch_step(
+            dev, smi, CONFIG_MASK_BN, "training_mask_bn_scratch")
+        with open(out, "w") as f:
+            json.dump(dict(counts=counts, ms=ms, losses=losses, norms=n_norm,
+                           backend=torch.distributed.get_backend(),
+                           world=dist.world_size()), f)
+    finally:
+        dist.destroy()
+
+
+def scratch_phase(dev, smi):
+    """Phase U: `scratch_step` on config/scratch/mask_r50v1b_fpn_gn_scratch_2x.py
+    (GroupNorm in every backbone norm) in this process, and on
+    mask_r50v1b_fpn_bn_scratch_2x.py (SyncBN) under `torchrun
+    --nproc_per_node 1` (this script's --scratch-rank mode). Returns
+    {path: (launch counts, ms, losses)}."""
+    import tempfile
+
+    from simpledet_torch.parallel.dist import free_port
+
+    gn = scratch_step(dev, smi, CONFIG_MASK_GN, "training_mask_gn_scratch")
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scratch_")
+    out = os.path.join(tmp, "scratch_rank.json")
+    try:
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", "1", "--master_port", str(free_port()),
+             os.path.join(REPO, "chip_smoke.py"), "--scratch-rank", out],
+            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"torchrun scratch step exited "
+                                 f"{run.returncode}:\n{run.stdout[-3000:]}\n"
+                                 f"{run.stderr[-3000:]}")
+        with open(out) as f:
+            rank = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rank["backend"] != "nccl" or rank["world"] != 1:
+        raise AssertionError(f"the SyncBN scratch step ran in {rank}")
+    log(f"training_mask_bn_scratch (torchrun, {rank['backend']} group of "
+        f"{rank['world']}): {rank['norms']} SyncBN layers, step 1 "
+        f"{rank['ms']:.3f} ms, launches {rank['counts']}, losses "
+        + ", ".join(f"{k} {v:.5f}" for k, v in rank["losses"].items()))
+    return {"training_mask_gn_scratch": gn[:3],
+            "training_mask_bn_scratch": (rank["counts"], rank["ms"],
+                                         rank["losses"])}
+
+
+def converge_v1d_phase(dev, smi):
+    """Phase V, in a fresh temporary directory: config/converge_mask.py's
+    recipe with its TinyBackbone's base swapped for ResNet50V1dFPN (depth
+    18; the stride on the 3 x 3 conv, the deep stem, the average-pool
+    shortcut), written there as CONFIG_CONVERGE_MASK_V1D, at lr
+    CONVERGE_MASK_V1D_LR, on 16 ellipse images at batch 8 for 480 steps
+    through the train CLI, then simpledet_torch.mask_test: phase L's gates
+    (`converge_mask`). The JAX package has no record for this recipe."""
+    import tempfile
+
+    from simpledet_torch.data.synthetic import make_micro_dataset
+
+    src = open(os.path.join(REPO, CONFIG_CONVERGE_MASK)).read()
+    swaps = (("from models.maskrcnn.builder import MSRAResNet50V1FPN",
+              "from models.FPN.builder import ResNet50V1dFPN"),
+             ("class TinyBackbone(MSRAResNet50V1FPN):",
+              "class TinyBackbone(ResNet50V1dFPN):"),
+             ('"converge_mask"', '"converge_mask_v1d"'))
+    for old, new in swaps:
+        if old not in src:
+            raise AssertionError(f"{CONFIG_CONVERGE_MASK} has no {old!r}")
+        src = src.replace(old, new)
+    cwd, saved = os.getcwd(), dict(os.environ)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_converge_v1d_")
+    try:
+        os.chdir(tmp)
+        os.makedirs("config")
+        with open(CONFIG_CONVERGE_MASK_V1D, "w") as f:
+            f.write(src)
+        make_micro_dataset(os.path.join(tmp, "ellipse"), n_images=16,
+                           set_names=("converge_train",), shapes="ellipse")
+        os.environ.update(CONVERGE_DATA_ROOT=os.path.join(tmp, "ellipse"),
+                          CONVERGE_MASK_BATCH="8",
+                          CONVERGE_MASK_EPOCHS=str(CONVERGE_MASK_EPOCHS),
+                          CONVERGE_MASK_LR=CONVERGE_MASK_V1D_LR)
+        log(f"converge_mask_v1d: lr {CONVERGE_MASK_V1D_LR} (the recipe's "
+            "0.005 diverged in 3 of 6 card runs)")
+        from simpledet_torch.core.config import read_config
+        from simpledet_torch.dsl import build_detector
+        check_variant(build_detector(read_config(CONFIG_CONVERGE_MASK_V1D,
+                                                 is_train=True)),
+                      "v1d", "converge_mask_v1d")
+        return converge_mask(dev, smi, None, CONFIG_CONVERGE_MASK_V1D,
+                             "converge_mask_v1d", None)
+    finally:
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def backbone_phases(dev, smi):
+    """Phases R, S, T, U and V."""
+    out = {}
+    with phase("R mask_v1b"):
+        out["mask_v1b"] = mask_v1b_phase(dev, smi)
+    with phase("S faster_v1d"):
+        out["faster_v1d"] = faster_v1d_phase(dev, smi)
+    with phase("T serving_r152"):
+        out["r152"] = r152_phase(dev, smi)
+    with phase("U mask scratch steps"):
+        out["scratch"] = scratch_phase(dev, smi)
+    with phase("V converge_mask_v1d"):
+        out["converge_v1d"] = converge_v1d_phase(dev, smi)
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--train-cli-rank"]:
         return train_cli_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--scratch-rank"]:
+        return scratch_rank(sys.argv[2])
     smi = environment()
     dev = torch.device("cuda", 0)
     from simpledet_torch.kernels import _build
@@ -2850,6 +3174,34 @@ def main():
         f"({B * 1e3 / ms_step_sync:.2f} img/s) against the FrozenBN bf16 "
         f"step of this call {ms_step_bf16:.3f} ms/step "
         f"({B * 1e3 / ms_step_bf16:.2f} img/s), on {smi}")
+    bb = backbone_phases(dev, smi)
+    mask_v1b = bb["mask_v1b"]
+    (paths["serving_mask_v1b"], ms_img_mask_v1b, _, at_mask_v1b_serving,
+     mask_v1b_breakdown) = mask_v1b["serving"]
+    (paths["training_mask_v1b"], ms_step_mask_v1b, split_mask_v1b,
+     profile_mask_v1b) = mask_v1b["training"]
+    k2_mask_v1b_sizes, k1_mask_v1b_14, k2_mask_v1b_14 = mask_v1b["roi"]
+    (paths["serving_faster_v1d"], ms_img_v1d), (
+        paths["training_faster_v1d"], ms_step_v1d, split_v1d, _) = \
+        bb["faster_v1d"]
+    for path, (counts, _, _) in list(bb["r152"].items()) + list(
+            bb["scratch"].items()):
+        paths[path] = counts
+    (paths["converge_mask_v1d"], paths["converge_mask_v1d_eval"],
+     at_converge_v1d, converge_v1d_result) = bb["converge_v1d"]
+    log(f"serving_mask_v1b: {ms_img_mask_v1b:.3f} ms/image, idle "
+        f"{mask_v1b_breakdown['device_idle_share']:.1%} of a traced request;"
+        f" training_mask_v1b {ms_step_mask_v1b:.3f} ms/step, idle "
+        f"{profile_mask_v1b['device_idle_share']:.1%}; serving_faster_v1d "
+        f"{ms_img_v1d:.3f} ms/image, training_faster_v1d {ms_step_v1d:.3f} "
+        f"ms/step (at {H}x{V1D_W}); " + "; ".join(
+            f"{p} {ms:.3f} ms/image, peak {peak:.2f} GiB"
+            for p, (_, ms, peak) in bb["r152"].items()) + "; " + "; ".join(
+            f"{p} one step {ms:.3f} ms" for p, (_, ms, _) in
+            bb["scratch"].items())
+        + f" -- beside the flagship of this call: serving {ms_img:.3f} "
+        f"ms/image, training {ms_step:.3f} ms/step (fp32 without TF32); on "
+        f"{smi}")
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -2871,7 +3223,10 @@ def main():
              converge_mask=at_converge_mask["nms"],
              retina_serving_score0=at_retina_serving,
              converge_retina=at_converge_retina,
-             rpn_only_serving=at_rpn_serving),
+             rpn_only_serving=at_rpn_serving,
+             mask_v1b_serving=at_mask_v1b_serving["nms"],
+             mask_v1b_training=mask_v1b["nms"],
+             converge_mask_v1d=at_converge_v1d["nms"]),
         dict(name="roi_align_fwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:267",
              **launches("roi_align_fwd"),
@@ -2887,7 +3242,10 @@ def main():
              mask_serving_14=at_mask_serving["roi_align_fwd"],
              mask_training_14=k1_mask14,
              mask_launches_a_request=mask_request,
-             converge_mask=at_converge_mask["roi_align_fwd"]),
+             converge_mask=at_converge_mask["roi_align_fwd"],
+             mask_v1b_serving_14=at_mask_v1b_serving["roi_align_fwd"],
+             mask_v1b_training_14=k1_mask_v1b_14,
+             converge_mask_v1d=at_converge_v1d["roi_align_fwd"]),
         dict(name="roi_align_bwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:351",
              **launches("roi_align_bwd"),
@@ -2904,7 +3262,13 @@ def main():
                      "busiest_tile_rois", "mean_tile_rois", "tiles_met",
                      "shape")}),
              mask_training_7=k2_mask_sizes["7"],
-             converge_mask=at_converge_mask["roi_align_bwd"]),
+             converge_mask=at_converge_mask["roi_align_bwd"],
+             mask_v1b_training_14=dict(k2_mask_v1b_14, **{
+                 k: k2_mask_v1b_sizes["14"][k] for k in (
+                     "busiest_tile_rois", "mean_tile_rois", "tiles_met",
+                     "shape")}),
+             mask_v1b_training_7=k2_mask_v1b_sizes["7"],
+             converge_mask_v1d=at_converge_v1d["roi_align_bwd"]),
     ]
     log(json.dumps({"serving_ms_per_image": ms_img,
                     "training_ms_per_step": ms_step,
@@ -2954,6 +3318,22 @@ def main():
                     "training_rpn_only_split_ms": split_rpn,
                     "training_rpn_only_profile": profile_rpn,
                     "rpn_test_recalls": rpn_recalls,
+                    "serving_mask_v1b_ms_per_image": ms_img_mask_v1b,
+                    "serving_mask_v1b_breakdown": mask_v1b_breakdown,
+                    "training_mask_v1b_ms_per_step": ms_step_mask_v1b,
+                    "training_mask_v1b_split_ms": split_mask_v1b,
+                    "training_mask_v1b_profile": profile_mask_v1b,
+                    "serving_faster_v1d_ms_per_image": ms_img_v1d,
+                    "training_faster_v1d_ms_per_step": ms_step_v1d,
+                    "training_faster_v1d_split_ms": split_v1d,
+                    "serving_r152": {p: dict(ms_per_image=ms, peak_gib=peak)
+                                     for p, (_, ms, peak) in
+                                     bb["r152"].items()},
+                    "scratch_steps": {p: dict(ms=ms, losses=losses)
+                                      for p, (_, ms, losses) in
+                                      bb["scratch"].items()},
+                    "converge_mask_v1d": converge_v1d_result,
+                    "converge_mask_v1d_jax_record": None,
                     "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,12 @@
 """The config factories that the ported configs are built on: a copy of
-`faster_fpn_config`, `standard_transforms` and `retina_fpn_config` from
-`simpledet_tpu/config_templates.py`, kept in the port so that it imports
-nothing of the JAX package. A neck or head that a retina config passes to
-`retina_fpn_config` (FreeAnchor, SEPC, NASFPN, EfficientNet) is recorded as
-the stand-in it is, and `dsl.build_detector` refuses it by name.
+`faster_fpn_config`, `standard_transforms`, `retina_fpn_config` and
+`mask_fpn_config` from `simpledet_tpu/config_templates.py`, kept in the port
+so that it imports nothing of the JAX package. A neck, head or backbone that
+a config passes to a template (FreeAnchor, SEPC, NASFPN, EfficientNet to
+`retina_fpn_config`; the SE backbone and mask head to `mask_fpn_config`) is
+recorded as the stand-in it is, and `dsl.build_detector` refuses it by name.
+`mask_fpn_config` sets its normalizer on every param class; the port
+normalises the backbone only, as the JAX DSL does (`dsl.py`).
 
 `core.config.read_config` serves this module for the import
 `simpledet_tpu.config_templates` while a config runs. Like the config files,
@@ -433,6 +436,296 @@ def retina_fpn_config(is_train, name, *, depth=50, variant="v1", fp16=False,
     transform, data_name, label_name = standard_transforms(is_train)
     import core.detection_metric as metric
     metric_list = [metric.ScalarLoss("ClsLoss", ["retina_cls_loss"], [])]
+    return (General, KvstoreParam, RpnParam, RoiParam, BboxParam,
+            DatasetParam, ModelParam, OptimizeParam, TestParam,
+            transform, data_name, label_name, metric_list)
+
+
+def mask_fpn_config(is_train, name, *, depth=50, variant="v1",
+                    schedule_mult=1, fp16=False, norm_type="fixbn",
+                    from_scratch=False, mask_head=None, backbone=None,
+                    num_class=81):
+    """Mask R-CNN FPN config family (reference config/mask_r50v1_fpn_1x.py,
+    config/resnet_v1b/mask_*.py, config/scratch/mask_*_scratch_2x.py,
+    config/se/mask_se-r50v1b_fpn_bn_scratch_2x.py)."""
+    from mxnext.complicate import normalizer_factory
+
+    class General:
+        log_frequency = 10
+        loader_worker = 8
+
+    General.name = name.rsplit("/")[-1].rsplit(".")[-1]
+    General.fp16 = fp16
+    General.batch_image = 2 if is_train else 1
+
+    class KvstoreParam:
+        kvstore = "mesh"
+        gpus = list(range(8))
+
+    KvstoreParam.batch_image = General.batch_image
+    KvstoreParam.fp16 = General.fp16
+
+    class NormalizeParam:
+        pass
+
+    NormalizeParam.normalizer = normalizer_factory(
+        type=norm_type, ndev=len(KvstoreParam.gpus))
+
+    class BackboneParam:
+        pass
+
+    BackboneParam.fp16 = General.fp16
+    BackboneParam.normalizer = NormalizeParam.normalizer
+    BackboneParam.depth = depth
+
+    class NeckParam:
+        pass
+
+    NeckParam.fp16 = General.fp16
+    NeckParam.normalizer = NormalizeParam.normalizer
+
+    class RpnParam:
+        nnvm_proposal = True
+        nnvm_rpn_target = True
+
+        class anchor_generate:
+            scale = (8,)
+            ratio = (0.5, 1.0, 2.0)
+            stride = (4, 8, 16, 32, 64)
+            image_anchor = 256
+            max_side = 1400
+
+        class anchor_assign:
+            allowed_border = 0
+            pos_thr = 0.7
+            neg_thr = 0.3
+            min_pos_thr = 0.0
+            image_anchor = 256
+            pos_fraction = 0.5
+
+        class head:
+            conv_channel = 256
+            mean = (0, 0, 0, 0)
+            std = (1, 1, 1, 1)
+
+        class proposal:
+            pre_nms_top_n = 2000 if is_train else 1000
+            post_nms_top_n = 2000 if is_train else 1000
+            nms_thr = 0.7
+            min_bbox_side = 0
+
+        class subsample_proposal:
+            proposal_wo_gt = False
+            image_roi = 512
+            fg_fraction = 0.25
+            fg_thr = 0.5
+            bg_thr_hi = 0.5
+            bg_thr_lo = 0.0
+
+        class bbox_target:
+            class_agnostic = False
+            weight = (1.0, 1.0, 1.0, 1.0)
+            mean = (0.0, 0.0, 0.0, 0.0)
+            std = (0.1, 0.1, 0.2, 0.2)
+
+    RpnParam.fp16 = General.fp16
+    RpnParam.normalizer = NormalizeParam.normalizer
+    RpnParam.batch_image = General.batch_image
+    RpnParam.bbox_target.num_reg_class = num_class
+
+    class BboxParam:
+        image_roi = 512
+
+        class regress_target:
+            class_agnostic = False
+            mean = (0.0, 0.0, 0.0, 0.0)
+            std = (0.1, 0.1, 0.2, 0.2)
+
+    BboxParam.fp16 = General.fp16
+    BboxParam.normalizer = NormalizeParam.normalizer
+    BboxParam.num_class = num_class
+    BboxParam.batch_image = General.batch_image
+
+    class MaskParam:
+        resolution = 28
+        dim_reduced = 256
+
+    MaskParam.fp16 = General.fp16
+    MaskParam.normalizer = NormalizeParam.normalizer
+    MaskParam.num_fg_roi = int(RpnParam.subsample_proposal.image_roi *
+                               RpnParam.subsample_proposal.fg_fraction)
+
+    class RoiParam:
+        out_size = 7
+        stride = (4, 8, 16, 32)
+        roi_canonical_scale = 224
+        roi_canonical_level = 4
+
+    RoiParam.fp16 = General.fp16
+    RoiParam.normalizer = NormalizeParam.normalizer
+
+    class MaskRoiParam:
+        out_size = 14
+        stride = (4, 8, 16, 32)
+        roi_canonical_scale = 224
+        roi_canonical_level = 4
+
+    MaskRoiParam.fp16 = General.fp16
+    MaskRoiParam.normalizer = NormalizeParam.normalizer
+
+    class DatasetParam:
+        if is_train:
+            image_set = ("coco_train2017",)
+        else:
+            image_set = ("coco_val2017",)
+
+    class TestParam:
+        min_det_score = 0.05
+        max_det_per_image = 100
+        process_roidb = lambda x: x          # noqa: E731
+        process_output = lambda x, y: x      # noqa: E731
+
+        class model:
+            pass
+
+        class nms:
+            type = "nms"
+            thr = 0.5
+
+        class coco:
+            annotation = "data/coco/annotations/instances_val2017.json"
+
+    TestParam.model.prefix = f"experiments/{General.name}/checkpoint"
+    TestParam.model.epoch = 6 * schedule_mult
+
+    from models.maskrcnn.builder import (BboxPostProcessor, FPNBbox2fcHead,
+                                         FPNNeck, FPNRoiAlign,
+                                         MaskFasterRcnn,
+                                         MaskFasterRcnn4ConvHead,
+                                         MaskFPNRpnHead)
+    if backbone is None:
+        from models.FPN import builder as fpn_builder
+        bb_name = {
+            ("v1", 50): "MSRAResNet50V1FPN",
+            ("v1", 101): "MSRAResNet101V1FPN",
+            ("v1b", 50): "ResNet50V1bFPN", ("v1b", 101): "ResNet101V1bFPN",
+            ("v1b", 152): "ResNet152V1bFPN",
+        }[(variant, depth)]
+        backbone = getattr(fpn_builder, bb_name)
+    mask_head_cls = mask_head or MaskFasterRcnn4ConvHead
+
+    bb = backbone(BackboneParam)
+    nk = FPNNeck(NeckParam)
+    rh = MaskFPNRpnHead(RpnParam, MaskParam)
+    re = FPNRoiAlign(RoiParam)
+    mre = FPNRoiAlign(MaskRoiParam)
+    bh = FPNBbox2fcHead(BboxParam)
+    mh = mask_head_cls(BboxParam, MaskParam, MaskRoiParam)
+    bpp = BboxPostProcessor(TestParam)
+    detector = MaskFasterRcnn()
+    if is_train:
+        train_sym = detector.get_train_symbol(bb, nk, rh, re, mre, bh, mh)
+        test_sym = None
+    else:
+        train_sym = None
+        test_sym = detector.get_test_symbol(bb, nk, rh, re, mre, bh, mh, bpp)
+
+    class ModelParam:
+        train_symbol = train_sym
+        test_symbol = test_sym
+        rpn_test_symbol = None
+        random = True
+        memonger = False
+        memonger_until = "stage3"
+
+        class pretrain:
+            epoch = 0
+
+    ModelParam.from_scratch = from_scratch
+    ModelParam.pretrain.prefix = f"pretrain_model/resnet-{variant}-{depth}"
+    ModelParam.pretrain.fixed_param = \
+        [] if from_scratch else ["conv0", "stage1", "scale", "bias"]
+
+    n_dev_img = len(KvstoreParam.gpus) * KvstoreParam.batch_image
+
+    class OptimizeParam:
+        class optimizer:
+            type = "sgd"
+            momentum = 0.9
+            wd = 0.0001
+            clip_gradient = None
+
+        class schedule:
+            begin_epoch = 0
+
+        class warmup:
+            type = "gradual"
+            iter = 500
+
+    OptimizeParam.optimizer.lr = 0.01 / 8 * n_dev_img
+    OptimizeParam.warmup.lr = 0.01 / 8 * n_dev_img / 3.0
+    OptimizeParam.schedule.end_epoch = 6 * schedule_mult
+    OptimizeParam.schedule.lr_iter = [
+        60000 * 16 * schedule_mult // n_dev_img,
+        80000 * 16 * schedule_mult // n_dev_img]
+    OptimizeParam.schedule.iter_per_epoch = 90000 * 16 // n_dev_img // 6
+
+    class NormParam:
+        mean = (122.7717, 115.9465, 102.9801)
+        std = (1.0, 1.0, 1.0)
+
+    class ResizeParam:
+        short = 800
+        long = 1333
+
+    class PadParam:
+        short = 800
+        long = 1333
+        max_num_gt = 100
+        max_len_gt_poly = 2500
+
+    class RenameParam:
+        mapping = dict(image="data")
+
+    from core.detection_input import ReadRoiRecord, RenameRecord
+    from models.maskrcnn.input import (EncodeGtPoly, Flip2DImageBboxMask,
+                                       Norm2DImage, Pad2DImageBboxMask,
+                                       PreprocessGtPoly,
+                                       Resize2DImageBboxMask)
+    # the JAX package's copy imports these from simpledet_tpu.data.transforms,
+    # which read_config serves by this module
+    from simpledet_torch.data.transforms import (Pad2DImageBbox,
+                                                 Resize2DImageBbox)
+    if is_train:
+        transform = [
+            ReadRoiRecord(None),
+            Norm2DImage(NormParam),
+            PreprocessGtPoly(),
+            Resize2DImageBboxMask(ResizeParam),
+            Flip2DImageBboxMask(),
+            Pad2DImageBboxMask(PadParam),
+            EncodeGtPoly(PadParam),
+            RenameRecord(RenameParam.mapping),
+        ]
+        data_name = ["data"]
+        label_name = ["gt_bbox", "gt_poly", "im_info"]
+    else:
+        transform = [
+            ReadRoiRecord(None),
+            Norm2DImage(NormParam),
+            Resize2DImageBbox(ResizeParam),
+            Pad2DImageBbox(PadParam),
+            RenameRecord(RenameParam.mapping),
+        ]
+        data_name = ["data", "im_info", "im_id", "rec_id"]
+        label_name = []
+
+    import core.detection_metric as metric
+    metric_list = [
+        metric.AccWithIgnore("RpnAcc", ["rpn_cls_logit", "rpn_label"], []),
+        metric.AccWithIgnore("RcnnAcc", ["bbox_cls_logit", "bbox_label"], []),
+        metric.ScalarLoss("MaskLoss", ["mask_loss"], []),
+    ]
     return (General, KvstoreParam, RpnParam, RoiParam, BboxParam,
             DatasetParam, ModelParam, OptimizeParam, TestParam,
             transform, data_name, label_name, metric_list)

@@ -14,10 +14,13 @@ gets the port's copy of that module, `simpledet_torch/config_templates.py`,
 which runs against the same stand-ins; a config that imports the JAX
 package's `simpledet_tpu.data.transforms` (the mask configs' test chain)
 gets the port's `simpledet_torch/data/transforms.py` itself, whose transforms
-it then builds as they are; any other import of `simpledet_tpu` raises
-NotImplementedError naming the module. `read_config` restores
-`sys.modules` afterwards and returns a `ConfigSpec` that `dsl.py` builds from:
-the test symbol's, or with is_train=True the train symbol's, with what the
+it then builds as they are; a config that imports the JAX DSL's classes
+(`from simpledet_tpu.dsl import ResNet50V1bFPN`, as `config/micro_test.py`
+does for its v1b / v1d backbones) gets a stand-in module of the same kind
+as the shims' (`_STAND_INS`), and nothing of the JAX module runs; any other
+import of `simpledet_tpu` raises NotImplementedError naming the module.
+`read_config` restores `sys.modules` afterwards and returns a `ConfigSpec`
+that `dsl.py` builds from: the test symbol's, or with is_train=True the train symbol's, with what the
 trainer, the loader and the CLIs read. The symbol's components are placed
 under the names of the detector's get_*_symbol arguments in the JAX DSL
 (`ROLES`: `bbox_head_2nd` and `bbox_head_3rd` for CascadeRcnn,
@@ -205,13 +208,16 @@ _TEMPLATES = "simpledet_tpu.config_templates"
 # modules of the JAX package served by the port's own module of that role
 _SERVED = {"simpledet_tpu.data.transforms": "simpledet_torch.data.transforms"}
 _BARE = ("simpledet_tpu", "simpledet_tpu.data")   # packages of those
+# modules of the JAX package served as stand-ins, as the shims are: the DSL's
+# component and detector classes have the shims' names
+_STAND_INS = ("simpledet_tpu.dsl",)
 
 
 class _StandInFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
-    """Imports any module under the shim roots as a stand-in, serves the JAX
-    package's config_templates from the port's copy and its data.transforms
-    by the port's module, and refuses every other module of the JAX
-    package."""
+    """Imports any module under the shim roots, and the JAX package's dsl,
+    as a stand-in, serves the JAX package's config_templates from the port's
+    copy and its data.transforms by the port's module, and refuses every
+    other module of the JAX package."""
 
     def find_spec(self, fullname, path=None, target=None):
         root = fullname.split(".")[0]
@@ -222,6 +228,9 @@ class _StandInFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
         if fullname in _BARE or fullname in _SERVED:
             return importlib.machinery.ModuleSpec(
                 fullname, self, is_package=fullname in _BARE)
+        if fullname in _STAND_INS:
+            return importlib.machinery.ModuleSpec(fullname, self,
+                                                  is_package=True)
         if root == "simpledet_tpu":
             raise NotImplementedError(
                 f"a config that imports {fullname} is not read by the port")

@@ -8,6 +8,15 @@ in a worker thread pool, collated to numpy batches with a `valid` mask (tail
 batches padded by repeating the last record) and prefetched. Batches stay on
 the host; the caller moves them to the device. Anchor targets are made on the
 device inside the train step, not here.
+
+Shards may differ in batch count (the remainder of the split goes to the low
+ranks, and each shard's aspect groups round up on their own). A rank that
+runs a batch more than another enters DDP's and SyncBN's all_reduce alone
+and blocks. So every rank computes every rank's count from the whole roidb
+(`rank_batch_counts`: the shard bounds and the grouping are deterministic,
+so no communication is needed) and runs the least of them an epoch, the
+first of its shuffled batches; the JAX package's loader has no such cut.
+One rank runs all its batches.
 """
 import queue
 from concurrent.futures import ThreadPoolExecutor
@@ -23,6 +32,28 @@ def aspect_group(roidb):
     vertical = [r for r in roidb if r["h"] >= r["w"]]
     horizontal = [r for r in roidb if r["h"] < r["w"]]
     return vertical, horizontal
+
+
+def shard_bounds(n, rank, num_ranks):
+    """[start, end) of a rank's shard of n records: an equal split, the
+    remainder to the low ranks (core/detection_input.py:790-810)."""
+    per, rem = divmod(n, num_ranks)
+    start = rank * per + min(rank, rem)
+    return start, start + per + (1 if rank < rem else 0)
+
+
+def batch_count(records, batch_size, aspect_grouping=True):
+    """Batches an epoch of `records` gives: each aspect group contributes
+    ceil(len / batch) whether its tail is padded or masked."""
+    groups = aspect_group(records) if aspect_grouping else [records]
+    return sum(-(-len(g) // batch_size) for g in groups if len(g))
+
+
+def rank_batch_counts(roidb, batch_size, num_ranks, aspect_grouping=True):
+    """Every rank's batch count an epoch, from the whole roidb."""
+    return [batch_count(roidb[slice(*shard_bounds(len(roidb), r, num_ranks))],
+                        batch_size, aspect_grouping)
+            for r in range(num_ranks)]
 
 
 class Loader:
@@ -48,19 +79,28 @@ class Loader:
         self.seed = seed
         self.epoch = 0
 
-        # rank shard: equal split + remainder to low ranks
-        # (core/detection_input.py:790-810)
-        n = len(roidb)
-        per = n // num_ranks
-        rem = n % num_ranks
-        start = rank * per + min(rank, rem)
-        end = start + per + (1 if rank < rem else 0)
+        start, end = shard_bounds(len(roidb), rank, num_ranks)
         self.roidb = roidb[start:end]
         for i, r in enumerate(self.roidb):
             r.setdefault("rec_id", start + i)
         self.aspect_grouping = aspect_grouping
-        self._len = None    # batch count is shuffle-invariant; cache it
+        self._all, self._rank, self._num_ranks = roidb, rank, num_ranks
+        self._counts = None  # the batch counts are shuffle-invariant
         self._pool = None   # one ThreadPoolExecutor for the loader lifetime
+
+    @property
+    def rank_counts(self):
+        """Every rank's own batch count an epoch."""
+        if self._counts is None:
+            self._counts = rank_batch_counts(self._all, self.batch_size,
+                                             self._num_ranks,
+                                             self.aspect_grouping)
+        return self._counts
+
+    @property
+    def dropped(self):
+        """Batches an epoch this rank leaves out to keep in step."""
+        return self.rank_counts[self._rank] - len(self)
 
     def _batches(self):
         rng = np.random.RandomState(self.seed + self.epoch)
@@ -82,17 +122,10 @@ class Loader:
                 all_batches.append(b)
         if self.shuffle:
             rng.shuffle(all_batches)
-        return all_batches
+        return all_batches[:len(self)]
 
     def __len__(self):
-        # analytic count (no batch materialization / shuffle): each aspect
-        # group contributes ceil(len/batch) batches whether padded or masked
-        if self._len is None:
-            groups = aspect_group(self.roidb) if self.aspect_grouping \
-                else [self.roidb]
-            self._len = sum(-(-len(g) // self.batch_size)
-                            for g in groups if len(g))
-        return self._len
+        return min(self.rank_counts)
 
     def _make(self, records):
         n_valid = len(records)

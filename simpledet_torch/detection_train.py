@@ -9,10 +9,13 @@
 The flow is train_net's: the config's roidb, keeping the images with gt and
 appending their flips; the threaded loader with the config's own transforms
 and label keys (a Mask R-CNN config's include gt_poly, the polygon edges),
-sharded by rank; the pretrain (`ModelParam.pretrain.prefix`, matched by Flax
-path and shape) unless the config trains from scratch, or with --resume the
-newest checkpoint and its SyncBN running statistics; the config's schedule,
-scaled by the number of hosts as train_net scales it by processes; the
+sharded by rank, every rank running the least rank's batch count an epoch
+(`data/loader.py`: a rank with a batch more would enter DDP's and SyncBN's
+all_reduce alone); the pretrain (`ModelParam.pretrain.prefix`, matched by
+Flax path and shape) unless the config trains from scratch, or with
+--resume the newest checkpoint and its SyncBN running statistics; the
+config's schedule, scaled by the number of hosts as train_net scales it by
+processes; the
 steps, with the config's metrics and the losses in a Speedometer line every
 `General.log_frequency` steps; and `experiments/<name>/checkpoint-%04d.params`
 (plus `.batch_stats` for SyncBN) at each epoch end (every
@@ -98,6 +101,10 @@ def train_net(config_path, max_iter_override=None, auto_resume=False, *,
     loader = Loader(roidb, from_config(spec.transform), general.batch_image,
                     shuffle=True, num_workers=general.loader_worker or 8,
                     rank=dist.rank(), num_ranks=n_rank, keys=keys)
+    if n_rank > 1:
+        logger.info(f"batches an epoch by rank {loader.rank_counts}: each "
+                    f"rank runs {len(loader)}, this rank drops "
+                    f"{loader.dropped}")
 
     if seed is None:
         seed = int(time.time()) if model_p.random else 0

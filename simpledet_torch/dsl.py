@@ -14,8 +14,11 @@ Each component computes in the dtype its param class asks for (`_dtype`:
 `fp16 = True` means bf16, as in the JAX package); parameters stay fp32. The
 backbone is normalised as its param class's normalizer says (`_norm`:
 FrozenBN when it names none); the FPN neck and the box head take no norm, as
-in the JAX package. A config's subclass of a backbone (`class
-TinyBackbone(MSRAResNet50V1FPN): depth = 18`) builds its base at its depth.
+in the JAX package (the mask template sets a normalizer on every param
+class; only the backbone reads it there, and here). The backbones are the
+JAX DSL's v1, v1b and v1d FPN ResNets (`BACKBONES`). A config's subclass of
+a backbone (`class TinyBackbone(MSRAResNet50V1FPN): depth = 18`) builds its
+base's variant at its depth.
 RetinaNet takes `RetinaNetNeck` (256 wide) and `RetinaNetHead` (towers as
 wide as RpnParam.head.conv_channel), fp32 only; RPN takes the flagship's
 backbone, neck and RPN head and builds `RpnOnly` (the JAX package's RPN
@@ -37,7 +40,12 @@ from simpledet_torch.models.retinanet import (RetinaNet, RetinaNetHead,
                                               RetinaNetNeck, RetinaSubnets)
 from simpledet_torch.models.rpn import FPNRpnHead, RpnConvHead
 
-BACKBONES = {"MSRAResNet50V1FPN": 50, "MSRAResNet101V1FPN": 101}
+# the JAX DSL's FPN backbone classes (`simpledet_tpu/dsl.py:50-72`):
+# name -> (depth, ResNet variant)
+BACKBONES = {"MSRAResNet50V1FPN": (50, "v1"),
+             "MSRAResNet101V1FPN": (101, "v1"),
+             "ResNet50V1bFPN": (50, "v1b"), "ResNet101V1bFPN": (101, "v1b"),
+             "ResNet152V1bFPN": (152, "v1b"), "ResNet50V1dFPN": (50, "v1d")}
 _COMMON = {"neck": ("FPNNeck",), "rpn_head": ("FPNRpnHead",),
            "roi_extractor": ("FPNRoiAlign",)}
 _CASCADE_HEAD = ("CascadeBbox2fcHead",)
@@ -123,8 +131,9 @@ def build_detector(spec, *, depth=None):
     _require(spec.detector, comps)
 
     bb = comps["backbone"]
-    backbone = ResNet(depth or bb.depth or BACKBONES[bb.name],
-                      dtype=_dtype(bb.param), norm=_norm(bb.param))
+    bb_depth, variant = BACKBONES[bb.name]
+    backbone = ResNet(depth or bb.depth or bb_depth, dtype=_dtype(bb.param),
+                      norm=_norm(bb.param), variant=variant)
     if spec.detector == "RetinaNet":
         return _retinanet(comps, backbone)
     neck = FPNNeck(backbone.out_channels, 256,

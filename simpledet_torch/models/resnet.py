@@ -1,10 +1,20 @@
-"""ResNet v1 backbone (counterpart of simpledet_tpu/models/resnet.py, v1).
+"""ResNet v1, v1b and v1d backbones (counterpart of
+simpledet_tpu/models/resnet.py, those variants).
 
-MSRA v1 conventions: the stride sits on the FIRST 1x1 conv of a bottleneck;
-the stem is a 7x7/2 conv with pad 3, a norm, relu, then a 3x3/2 max-pool
-with pad 1. Flax's SAME padding on the 1x1/2 convs is no padding. Module names
-follow the Flax tree (`stage1_unit1.conv1`, ...), so `weights.from_flax`
-maps names one to one.
+- v1 (MSRA): the stride sits on the FIRST 1x1 conv of a bottleneck; the stem
+  is a 7x7/2 conv with pad 3, a norm, relu, then a 3x3/2 max-pool with pad 1.
+  Flax's SAME padding on the 1x1/2 convs is no padding.
+- v1b: the stride sits on the 3x3 conv, which pads (1, 1) explicitly (not
+  SAME, which would pad (0, 1) at stride 2 on an even side); v1's stem.
+- v1d: v1b's units, but a strided shortcut is a 2x2/2 average pool (VALID:
+  it floors an odd side, where the 3x3/2 main branch ceils, so the residual
+  add fails there as in the JAX package) and then the 1x1 `sc_conv` at
+  stride 1; the stem is three 3x3 convs `conv0_0`, `conv0_1`, `conv0_2`
+  (32, 32, 64 wide, the first at stride 2) with Flax's SAME padding ((0, 1)
+  at stride 2 on an even side: `SameConv2d`), each with its norm `bn0_i`
+  and relu, then v1's max-pool.
+Module names follow the Flax tree (`stage1_unit1.conv1`, `conv0_1`, ...), so
+`weights.from_flax` maps names one to one.
 
 `norm` makes each norm layer from its channel count
 (`models/norm.py::normalizer_factory`, FrozenBN by default), as the JAX
@@ -18,7 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from simpledet_torch.models.init import lecun_normal_
-from simpledet_torch.models.layers import conv2d
+from simpledet_torch.models.layers import SameConv2d, conv2d
 from simpledet_torch.models.norm import normalizer_factory
 
 # depth -> per-stage unit counts
@@ -36,37 +46,62 @@ def conv(cin, cout, k, stride=1, pad=0, dtype=torch.float32):
                   compute_dtype=dtype)
 
 
+VARIANTS = ("v1", "v1b", "v1d")
+
+
 class Bottleneck(nn.Module):
-    def __init__(self, cin, filters, stride, dtype, norm):
+    def __init__(self, cin, filters, stride, dtype, norm, variant="v1"):
         super().__init__()
-        self.conv1 = conv(cin, filters, 1, stride, dtype=dtype)
+        s1, s3 = (stride, 1) if variant == "v1" else (1, stride)
+        self.conv1 = conv(cin, filters, 1, s1, dtype=dtype)
         self.bn1 = norm(filters)
-        self.conv2 = conv(filters, filters, 3, 1, 1, dtype=dtype)
+        self.conv2 = conv(filters, filters, 3, s3, 1, dtype=dtype)
         self.bn2 = norm(filters)
         self.conv3 = conv(filters, filters * 4, 1, dtype=dtype)
         self.bn3 = norm(filters * 4)
         self.has_sc = cin != filters * 4 or stride != 1
+        self.avg_down = variant == "v1d" and stride != 1
         if self.has_sc:
-            self.sc_conv = conv(cin, filters * 4, 1, stride, dtype=dtype)
+            self.sc_conv = conv(cin, filters * 4, 1,
+                                1 if self.avg_down else stride, dtype=dtype)
             self.sc_bn = norm(filters * 4)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
-        residual = self.sc_bn(self.sc_conv(x)) if self.has_sc else x
+        residual = x
+        if self.has_sc:
+            if self.avg_down:
+                residual = F.avg_pool2d(residual, 2, 2)
+            residual = self.sc_bn(self.sc_conv(residual))
         return F.relu(y + residual)
 
 
 class ResNet(nn.Module):
     """NCHW in, {"c2": ..., "c5": ...} stage features out."""
 
-    def __init__(self, depth=50, dtype=torch.float32, norm=None):
+    def __init__(self, depth=50, dtype=torch.float32, norm=None,
+                 variant="v1"):
         super().__init__()
+        if variant not in VARIANTS:
+            raise NotImplementedError(f"ResNet variant {variant!r} is not "
+                                      "ported yet")
         norm = norm or normalizer_factory("fixbn")
         self.dtype = dtype
-        self.conv0 = conv(3, 64, 7, 2, 3, dtype=dtype)
-        self.bn0 = norm(64)
+        self.variant = variant
+        if variant == "v1d":
+            self.stem = ("conv0_0", "conv0_1", "conv0_2")
+            self.conv0_0 = SameConv2d(3, 32, 3, stride=2, bias=False,
+                                      compute_dtype=dtype)
+            self.conv0_1 = conv(32, 32, 3, 1, 1, dtype=dtype)
+            self.conv0_2 = conv(32, 64, 3, 1, 1, dtype=dtype)
+            for i, f in enumerate((32, 32, 64)):
+                self.add_module(f"bn0_{i}", norm(f))
+        else:
+            self.stem = ("conv0",)
+            self.conv0 = conv(3, 64, 7, 2, 3, dtype=dtype)
+            self.bn0 = norm(64)
         self.units = []
         cin = 64
         for stage, (n_unit, filters) in enumerate(
@@ -76,14 +111,16 @@ class ResNet(nn.Module):
                 name = f"stage{stage + 1}_unit{unit + 1}"
                 stride = 2 if stage > 0 and unit == 0 else 1
                 self.add_module(name, Bottleneck(cin, filters, stride, dtype,
-                                                 norm))
+                                                 norm, variant))
                 cin = filters * 4
                 names.append(name)
             self.units.append(names)
         self.out_channels = (256, 512, 1024, 2048)
 
     def forward(self, x):
-        x = F.relu(self.bn0(self.conv0(x)))     # conv0 computes in dtype
+        for name in self.stem:                  # conv0 computes in dtype
+            x = F.relu(getattr(self, name.replace("conv", "bn"))(
+                getattr(self, name)(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         feats = {}
         for stage, names in enumerate(self.units):

@@ -7,7 +7,7 @@ asks for bf16. Convolutions run NCHW in channels_last memory; the subnets'
 outputs are permuted to NHWC before any reshape, so anchors run in the JAX
 package's (level, y, x, anchor) order and class scores in (y, x, anchor,
 class) order. Flax's SAME padding on the stride-2 P6 and P7 convs pads (0, 1)
-along an even side: `SameConv2d` pads as Flax does.
+along an even side: `models/layers.py::SameConv2d` pads as Flax does.
 """
 import math
 
@@ -17,6 +17,7 @@ from torch.nn import functional as F
 
 from simpledet_torch.models.fpn import upsample2x_to
 from simpledet_torch.models.init import fan_in_uniform_, normal_
+from simpledet_torch.models.layers import SameConv2d
 from simpledet_torch.models.rpn import AnchorHead, level_keys, to_nhwc_rows
 from simpledet_torch.ops.bbox import clip_boxes, decode_boxes
 from simpledet_torch.ops.losses import sigmoid_focal_loss, smooth_l1
@@ -28,23 +29,6 @@ from simpledet_torch.targets.retina_target import batched_retina_anchor_target
 SMOOTH_L1_SCALAR = 0.11
 # each tower's 3x3 convs, and the class prior of the cls_pred bias
 NUM_CONV, PRIOR_PROB = 4, 0.01
-
-
-def same_pads(n, k, s):
-    """(before, after) padding of one side of length n under Flax's SAME
-    for a k-wide kernel at stride s."""
-    total = max((-(-n // s) - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
-
-
-class SameConv2d(nn.Conv2d):
-    """nn.Conv2d padded as Flax's SAME pads, side by side."""
-
-    def forward(self, x):
-        (k_h, k_w), (s_h, s_w) = self.kernel_size, self.stride
-        top, bottom = same_pads(x.shape[2], k_h, s_h)
-        left, right = same_pads(x.shape[3], k_w, s_w)
-        return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
 class RetinaNetNeck(nn.Module):

@@ -57,6 +57,23 @@ def test_reading_and_building_imports_no_jax():
         "        net = build_detector(read_config(f'config/{cfg}.py', tr), "
         "depth=18)\n"
         "        assert type(net).__name__ in ('RetinaNet', 'RpnOnly'), cfg\n"
+        # the v1b / v1d / R152 configs and mask_fpn_config, at depth 18
+        # without the seeded init; micro_test's v1b / v1d backbones come
+        # from `import simpledet_tpu.dsl`, served as a stand-in
+        "import os, glob\n"
+        "v1b = (['config/faster_r50v1b_fpn_1x.py'] + [c for c in "
+        "sorted(glob.glob('config/resnet_v1b/*_r*v1[bd]_fpn_[12]x.py')) "
+        "if os.path.basename(c).split('_')[0] in ('faster', 'mask', 'retina')] + "
+        "sorted(glob.glob('config/scratch/mask_r50v1b_fpn_*_scratch_2x.py')))\n"
+        "assert len(v1b) == 19, v1b\n"
+        "for cfg in v1b:\n"
+        "    for tr in (False, True):\n"
+        "        net = build_detector(read_config(cfg, tr), depth=18)\n"
+        "        assert net.backbone.variant in ('v1b', 'v1d'), cfg\n"
+        "for variant in ('v1b', 'v1d'):\n"
+        "    os.environ['SIMPLEDET_MICRO_BACKBONE'] = variant\n"
+        "    net = build_detector(read_config('config/micro_test.py', True))\n"
+        "    assert net.backbone.variant == variant\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(sum(p.numel() for p in model.parameters()))\n")

@@ -37,6 +37,17 @@ SUMMARY_KEYS = ["AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
                 "AR100", "ARs", "ARm", "ARl"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads while this module's tests run: the tier-1
+    command runs 6 test workers on the CPU's cores, and torch's default of
+    a thread a core would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------ the configs
 
 

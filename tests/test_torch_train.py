@@ -56,6 +56,20 @@ LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module's tests run: the tier-1
+    command runs 6 test workers on the CPU's cores, and torch's default of
+    a thread a core would oversubscribe them. Not two: with two threads
+    oneDNN sums the convolutions in another order, and one box-head bias
+    gradient moved 2.0e-3 of its max (a float32 near-tie); with one or four
+    every gradient stays within 1e-4."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel_err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.abs(got - want).max() / max(np.abs(want).max(), 1e-12)
