@@ -10,7 +10,10 @@ score averaging over the three heads; for a Mask R-CNN config, then the mask
 RoIAlign on the kept boxes and the mask head with its sigmoid; pasting the
 masks into the image is eval work, outside the request; for a RetinaNet
 config: normalise, backbone, neck, subnets, decode and top-k, per-class
-NMS; for an RPN-only config the stages up to the proposals), timing each stage
+NMS; for an RPN-only config the stages up to the proposals; for a C4 /
+TridentNet config: normalise, trunk (stem and stages 1-2), trident stage
+(stage 3 on every branch), RPN head, proposals, RoIAlign, C5 head, then the
+decode, the branches' merge and the per-class NMS), timing each stage
 with CUDA events over `count` requests, then traces `count` whole requests with
 torch.profiler for the device's busy share and the top kernels by device time.
 Prints one JSON object with the card's name and power limit and how the
@@ -30,6 +33,7 @@ from simpledet_torch.models.cascade_rcnn import STAGES, CascadeRcnn
 from simpledet_torch.models.faster_rcnn import RpnOnly
 from simpledet_torch.models.retinanet import RetinaNet
 from simpledet_torch.models.mask_rcnn import PROFILER_RANGES, MaskFasterRcnn
+from simpledet_torch.models.tridentnet import TridentFasterRcnn
 from simpledet_torch.ops.image import device_normalize
 
 
@@ -60,6 +64,44 @@ def cascade_stages(m, st, im_info):
                                                     st["cur"])
 
     return out + [("score_average", average)]
+
+
+def trident_stages(m, st, im_info, norm, nms):
+    """A TridentFasterRcnn's test path, its backbone split into the shared
+    trunk and the trident stage, the RoIAlign and the C5 head on the
+    branches folded into the image axis, the decode and the branches' merge
+    with the per-class NMS."""
+    b = im_info.shape[0]
+    im_info_b = m.fold(im_info)
+
+    def trunk():
+        st["trunk"] = m.backbone.stem_and_trunk(st["x"].permute(0, 3, 1, 2))
+
+    def trident_stage():
+        c4 = m.backbone.branches(st["trunk"])
+        st["pyr"] = m.neck({"c4": c4, "stride16": c4})
+
+    def rpn_head():
+        st["rpn"] = m.rpn_module(st["pyr"])
+
+    def proposals():
+        st["props"], _ = m.rpn.proposals(st["rpn"], im_info_b)
+
+    def roi_align():
+        st["feat"] = m.extract_rois(st["pyr"], st["props"])
+
+    def c5_head():
+        st["head"] = m.bbox_head(st["feat"])
+
+    def decode_nms():
+        st["score"], st["boxes"] = m.merge_branches(
+            *m.predict(*st["head"], st["props"], im_info_b), b)
+        return nms()
+
+    return [("normalize", norm), ("trunk", trunk),
+            ("trident_stage", trident_stage), ("rpn_head", rpn_head),
+            ("proposals", proposals), ("roi_align", roi_align),
+            ("c5_head", c5_head), ("decode_nms", decode_nms)]
 
 
 def stages(det, images, im_info):
@@ -110,6 +152,8 @@ def stages(det, images, im_info):
         return [("normalize", norm), ("backbone", backbone), ("neck", neck),
                 ("subnets", subnets), ("decode_topk", decode),
                 ("per_class_nms", nms)]
+    if isinstance(m, TridentFasterRcnn):
+        return trident_stages(m, st, im_info, norm, nms)
     if isinstance(m, RpnOnly):
         def last_proposals():
             proposals()

@@ -1,10 +1,13 @@
 """The config factories that the ported configs are built on: a copy of
-`faster_fpn_config`, `standard_transforms`, `retina_fpn_config` and
-`mask_fpn_config` from `simpledet_tpu/config_templates.py`, kept in the port
-so that it imports nothing of the JAX package. A neck, head or backbone that
-a config passes to a template (FreeAnchor, SEPC, NASFPN, EfficientNet to
-`retina_fpn_config`; the SE backbone and mask head to `mask_fpn_config`) is
-recorded as the stand-in it is, and `dsl.build_detector` refuses it by name.
+`faster_fpn_config`, `standard_transforms`, `retina_fpn_config`,
+`trident_c4_config`, `multiscale_transforms` and `mask_fpn_config` from
+`simpledet_tpu/config_templates.py`, kept in the port so that it imports
+nothing of the JAX package (`multiscale_transforms` takes its
+RandResize2DImageBbox from the port's `data/transforms.py`). A neck, head
+or backbone that a config passes to a template (FreeAnchor, SEPC, NASFPN,
+EfficientNet to `retina_fpn_config`; the SE backbone and mask head to
+`mask_fpn_config`; the DCN backbones to `trident_c4_config`) is recorded as
+the stand-in it is, and `dsl.build_detector` refuses it by name.
 `mask_fpn_config` sets its normalizer on every param class; the port
 normalises the backbone only, as the JAX DSL does (`dsl.py`).
 
@@ -439,6 +442,294 @@ def retina_fpn_config(is_train, name, *, depth=50, variant="v1", fp16=False,
     return (General, KvstoreParam, RpnParam, RoiParam, BboxParam,
             DatasetParam, ModelParam, OptimizeParam, TestParam,
             transform, data_name, label_name, metric_list)
+
+
+def trident_c4_config(is_train, name, *, depth=50, resnet_variant="v2",
+                      num_branch=3, fast=False, scaleaware=True,
+                      image_roi=128, batch_image=1, schedule_mult=1,
+                      multiscale=False, addminival=False, fp16=False,
+                      syncbn=False, from_scratch=False, num_class=81,
+                      backbone=None, bbox_head=None):
+    """TridentNet / plain-C4 Faster R-CNN config family (reference
+    config/tridentnet_*.py, config/resnet_v1b/tridentnet_*.py,
+    config/faster_r50v2c4_c5_256roi_1x.py).
+
+    fast=True is the TridentNet-Fast approximation (reference
+    tridentnet_fast_* / *_fastapprox_*): train all branches without
+    scale-aware filtering, test only the middle (dilation-2) branch.
+    num_branch=1 (with scaleaware=False) degenerates to single-branch C4.
+    """
+    from mxnext.complicate import normalizer_factory
+
+    class Trident:
+        pass
+
+    Trident.num_branch = num_branch
+    Trident.branch_dilates = list(range(1, num_branch + 1))
+    if fast:
+        Trident.train_scaleaware = False
+        Trident.test_scaleaware = False
+        Trident.valid_ranges = None
+        if not is_train:
+            Trident.num_branch = 1
+            Trident.branch_dilates = [2] if num_branch >= 2 else [1]
+    else:
+        Trident.train_scaleaware = scaleaware and num_branch > 1
+        Trident.test_scaleaware = scaleaware and num_branch > 1
+        Trident.valid_ranges = \
+            [(0, 90), (30, 160), (90, -1)] if num_branch == 3 else None
+
+    class General:
+        log_frequency = 10
+        loader_worker = 8
+
+    General.name = name.rsplit("/")[-1].rsplit(".")[-1]
+    General.fp16 = fp16
+    General.batch_image = batch_image if is_train else 1
+
+    class KvstoreParam:
+        kvstore = "mesh"
+        gpus = list(range(8))
+
+    KvstoreParam.batch_image = General.batch_image
+    KvstoreParam.fp16 = General.fp16
+
+    class NormalizeParam:
+        normalizer = normalizer_factory(type="syncbn", ndev=8) if syncbn \
+            else normalizer_factory(type="fixbn")
+
+    class BackboneParam:
+        trident = Trident
+
+    BackboneParam.fp16 = General.fp16
+    BackboneParam.normalizer = NormalizeParam.normalizer
+    BackboneParam.depth = depth
+
+    class NeckParam:
+        pass
+
+    NeckParam.fp16 = General.fp16
+    NeckParam.normalizer = NormalizeParam.normalizer
+
+    class RpnParam:
+        class anchor_generate:
+            scale = (2, 4, 8, 16, 32)
+            ratio = (0.5, 1.0, 2.0)
+            stride = (16,)
+            image_anchor = 256
+
+        class anchor_assign:
+            allowed_border = 0
+            pos_thr = 0.7
+            neg_thr = 0.3
+            min_pos_thr = 0.0
+            image_anchor = 256
+            pos_fraction = 0.5
+
+        class head:
+            conv_channel = 512
+            mean = (0, 0, 0, 0)
+            std = (1, 1, 1, 1)
+
+        class proposal:
+            pre_nms_top_n = 12000 if is_train else 6000
+            post_nms_top_n = 500 if is_train else 300
+            nms_thr = 0.7
+            min_bbox_side = 0
+
+        class subsample_proposal:
+            proposal_wo_gt = False
+            fg_fraction = 0.25
+            fg_thr = 0.5
+            bg_thr_hi = 0.5
+            bg_thr_lo = 0.0
+
+        class bbox_target:
+            num_reg_class = 2
+            class_agnostic = True
+            weight = (1.0, 1.0, 1.0, 1.0)
+            mean = (0.0, 0.0, 0.0, 0.0)
+            std = (0.1, 0.1, 0.2, 0.2)
+
+    RpnParam.fp16 = General.fp16
+    RpnParam.normalizer = NormalizeParam.normalizer
+    RpnParam.batch_image = General.batch_image * Trident.num_branch
+    RpnParam.subsample_proposal.image_roi = image_roi
+
+    class BboxParam:
+        class regress_target:
+            class_agnostic = True
+            mean = (0.0, 0.0, 0.0, 0.0)
+            std = (0.1, 0.1, 0.2, 0.2)
+
+    BboxParam.fp16 = General.fp16
+    BboxParam.normalizer = NormalizeParam.normalizer
+    BboxParam.num_class = num_class
+    BboxParam.depth = depth
+    BboxParam.variant = resnet_variant
+    BboxParam.image_roi = image_roi
+    BboxParam.batch_image = General.batch_image * Trident.num_branch
+
+    class RoiParam:
+        out_size = 14
+        stride = 16
+
+    RoiParam.fp16 = General.fp16
+    RoiParam.normalizer = NormalizeParam.normalizer
+
+    class DatasetParam:
+        if is_train:
+            image_set = ("coco_train2017", "coco_val2017") if addminival \
+                else ("coco_train2017",)
+        else:
+            image_set = ("coco_val2017",)
+
+    from models.tridentnet.builder import (BboxC5Head, TridentFasterRcnn,
+                                           TridentRpnHead)
+    from models.tridentnet.builder_v2 import (TridentResNetV1C4,
+                                              TridentResNetV1bC4,
+                                              TridentResNetV2C4)
+    from symbol.builder import BboxC5V1Head, Neck
+    from symbol.builder import RoiAlign as RoiExtractor
+
+    backbone_cls = backbone or \
+        {"v1": TridentResNetV1C4, "v1b": TridentResNetV1bC4,
+         "v2": TridentResNetV2C4}[resnet_variant]
+    bbox_head_cls = bbox_head or \
+        (BboxC5Head if resnet_variant == "v2" else BboxC5V1Head)
+
+    backbone = backbone_cls(BackboneParam)
+    neck = Neck(NeckParam)
+    rpn_head = TridentRpnHead(RpnParam)
+    roi_extractor = RoiExtractor(RoiParam)
+    bbox_head = bbox_head_cls(BboxParam)
+    detector = TridentFasterRcnn()
+    if is_train:
+        train_sym = detector.get_train_symbol(
+            backbone, neck, rpn_head, roi_extractor, bbox_head,
+            num_branch=Trident.num_branch,
+            scaleaware=Trident.train_scaleaware,
+            valid_ranges=Trident.valid_ranges)
+        test_sym = None
+    else:
+        train_sym = None
+        test_sym = detector.get_test_symbol(
+            backbone, neck, rpn_head, roi_extractor, bbox_head,
+            num_branch=Trident.num_branch,
+            scaleaware=Trident.test_scaleaware,
+            valid_ranges=Trident.valid_ranges)
+
+    class ModelParam:
+        train_symbol = train_sym
+        test_symbol = test_sym
+        rpn_test_symbol = None
+        random = True
+        memonger = False
+
+        class pretrain:
+            epoch = 0
+
+    ModelParam.from_scratch = from_scratch
+    ModelParam.pretrain.prefix = \
+        f"pretrain_model/resnet-{resnet_variant}-{depth}"
+    ModelParam.pretrain.fixed_param = \
+        [] if from_scratch else ["conv0", "stage1", "scale", "bias"]
+
+    n_dev_img = len(KvstoreParam.gpus) * KvstoreParam.batch_image
+
+    class OptimizeParam:
+        class optimizer:
+            type = "sgd"
+            momentum = 0.9
+            wd = 0.0001
+            clip_gradient = None
+
+        class schedule:
+            begin_epoch = 0
+
+        class warmup:
+            type = "gradual"
+            iter = 500
+
+    OptimizeParam.optimizer.lr = 0.01 / 8 * n_dev_img
+    OptimizeParam.warmup.lr = 0.01 / 8 * n_dev_img / 3.0
+    OptimizeParam.schedule.end_epoch = 6 * schedule_mult
+    OptimizeParam.schedule.lr_iter = [
+        60000 * 16 * schedule_mult // n_dev_img,
+        80000 * 16 * schedule_mult // n_dev_img]
+    OptimizeParam.schedule.iter_per_epoch = 90000 * 16 // n_dev_img // 6
+
+    class TestParam:
+        min_det_score = 0.05
+        max_det_per_image = 100
+        process_roidb = lambda x: x          # noqa: E731
+        process_output = lambda x, y: x      # noqa: E731
+
+        class model:
+            pass
+
+        class nms:
+            type = "nms"
+            thr = 0.5
+
+        class coco:
+            annotation = "data/coco/annotations/instances_val2017.json"
+
+    TestParam.model.prefix = f"experiments/{General.name}/checkpoint"
+    TestParam.model.epoch = 6 * schedule_mult
+
+    if multiscale and is_train:
+        transform, data_name, label_name = multiscale_transforms(is_train)
+    else:
+        transform, data_name, label_name = standard_transforms(is_train)
+
+    import core.detection_metric as metric
+    metric_list = [
+        metric.AccWithIgnore("RpnAcc", ["rpn_cls_logit", "rpn_label"], []),
+        metric.AccWithIgnore("RcnnAcc", ["bbox_cls_logit", "bbox_label"], []),
+    ]
+    return (General, KvstoreParam, RpnParam, RoiParam, BboxParam,
+            DatasetParam, ModelParam, OptimizeParam, TestParam,
+            transform, data_name, label_name, metric_list)
+
+
+def multiscale_transforms(is_train, scales=((600, 1000), (800, 1333),
+                                            (1000, 1600)), max_num_gt=100):
+    """Multi-scale train pipeline (reference RandResize2DImageBbox,
+    core/detection_input.py:158-181): random short/long per record, padded
+    to the largest scale."""
+    class NormParam:
+        mean = (122.7717, 115.9465, 102.9801)
+        std = (1.0, 1.0, 1.0)
+
+    class RandResizeParam:
+        pass
+
+    RandResizeParam.short = [s for s, _ in scales]
+    RandResizeParam.long = [l for _, l in scales]
+
+    class PadParam:
+        pass
+
+    PadParam.short = max(s for s, _ in scales)
+    PadParam.long = max(l for _, l in scales)
+    PadParam.max_num_gt = max_num_gt
+
+    class RenameParam:
+        mapping = dict(image="data")
+
+    from core.detection_input import (ConvertImageFromHwcToChw,
+                                      Flip2DImageBbox, Norm2DImage,
+                                      Pad2DImageBbox, ReadRoiRecord,
+                                      RenameRecord)
+    from simpledet_torch.data.transforms import RandResize2DImageBbox
+    transform = [
+        ReadRoiRecord(None), Norm2DImage(NormParam),
+        RandResize2DImageBbox(RandResizeParam), Flip2DImageBbox(),
+        Pad2DImageBbox(PadParam), ConvertImageFromHwcToChw(),
+        RenameRecord(RenameParam.mapping),
+    ]
+    return transform, ["data"], ["gt_bbox", "im_info"]
 
 
 def mask_fpn_config(is_train, name, *, depth=50, variant="v1",

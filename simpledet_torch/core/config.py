@@ -28,8 +28,10 @@ under the names of the detector's get_*_symbol arguments in the JAX DSL
 MaskFasterRcnn; RetinaNet and RPN take a backbone, a neck and an
 `rpn_head`), every one of them, each with every param class it was
 given (`MaskFasterRcnn4ConvHead(BboxParam, MaskParam, MaskRoiParam)`); a
-detector without roles there, an argument given by keyword, or a component
-that has no role raises NotImplementedError. A config's subclass of a
+detector without roles there, a component that has no role, or an argument
+given by keyword raises NotImplementedError, except the keywords a detector
+reads (`KEYWORDS`: TridentFasterRcnn's `num_branch`, `scaleaware` and
+`valid_ranges`), which the spec keeps as `options`. A config's subclass of a
 stand-in detector (`config/rpn_r50v1_fpn_1x.py`'s `class
 _RpnDetector(RPN)`, whose get_*_symbol call `RPN._assemble`) is recorded as
 its stand-in base.
@@ -306,6 +308,7 @@ class ConfigSpec:
     transform: tuple = ()          # the recorded transforms, in order
     label_name: tuple = ()         # the batch keys the config labels
     metric_list: tuple = ()        # the recorded core.detection_metric's
+    options: Any = None            # the get_*_symbol keywords of KEYWORDS
 
     @property
     def name(self):
@@ -329,22 +332,29 @@ ROLES = {
     # head's role, its param class is the config's RpnParam
     "RetinaNet": ("backbone", "neck", "rpn_head"),
     "RPN": ("backbone", "neck", "rpn_head"),
+    "TridentFasterRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
+                          "bbox_head"),
 }
+# the keyword arguments of a detector's get_*_symbol that the port reads
+KEYWORDS = {"TridentFasterRcnn": ("num_branch", "scaleaware",
+                                  "valid_ranges")}
 
 
 def place_components(sym):
     """{role: Component} of every component a detector's get_*_symbol was
     given, under ROLES' names; raises NotImplementedError for a detector
-    without roles, for an argument given by keyword, and for a component
-    that has no role or is not a config-side component instance."""
+    without roles, for an argument given by keyword that is not one of its
+    KEYWORDS, and for a component that has no role or is not a config-side
+    component instance."""
     roles = ROLES.get(sym.detector)
     if roles is None:
         raise NotImplementedError(f"detector {sym.detector!r}: its "
                                   "components are not read by the port")
     call = f"{sym.detector}.get_{sym.kind}_symbol"
-    if sym.named:
+    unread = [k for k in sym.named if k not in KEYWORDS.get(sym.detector, ())]
+    if unread:
         raise NotImplementedError(f"{call}: arguments given by keyword "
-                                  f"({', '.join(sym.named)}) are not read")
+                                  f"({', '.join(unread)}) are not read")
     if len(sym.components) > len(roles):
         raise NotImplementedError(
             f"{call} was given {len(sym.components)} components; the port "
@@ -401,4 +411,4 @@ def read_config(path, is_train=False):
                       model=model_param, transform=tuple(transform or ()),
                       label_name=tuple(out[11] or ()),
                       metric_list=tuple(out[12] or ()) if len(out) > 12
-                      else ())
+                      else (), options=dict(sym.named))

@@ -23,9 +23,30 @@ from simpledet_torch import resolve_device
 from simpledet_torch.core.optimizer import freeze_mask, make_optimizer, set_lr
 from simpledet_torch.core.schedule import from_optimize_param
 from simpledet_torch.dsl import detector_from_config
-from simpledet_torch.models.norm import fold_batch_stats
+from simpledet_torch.models.norm import FrozenBN, fold_batch_stats
 from simpledet_torch.ops.image import device_normalize
 from simpledet_torch.parallel import dist
+
+
+def fold_detector_stats(model, data, im_info):
+    """Fold one batch's statistics into a detector's FrozenBN buffers
+    (`models/norm.py::fold_batch_stats`): the backbone's on the normalised
+    batch data [B, H, W, 3], then, where the box head has FrozenBN of its
+    own (a C4 model's C5 head, a stage of the same pretrained ResNet), the
+    head's on the roi features of the batch's test-mode proposals."""
+    fold_batch_stats(model.backbone, data.permute(0, 3, 1, 2))
+    head = getattr(model, "bbox_head", None)
+    if head is None or not any(isinstance(m, FrozenBN)
+                               for m in head.modules()):
+        return
+    feats = []
+    hook = head.register_forward_pre_hook(
+        lambda mod, args: feats.append(args[0]))
+    try:
+        model(data, im_info, mode="test")
+    finally:
+        hook.remove()
+    fold_batch_stats(head, feats[0])
 
 
 class Trainer:
@@ -95,11 +116,10 @@ class Trainer:
         return images.float(), im_info
 
     def fold_batch_stats(self, images, im_info):
-        """Fold this batch's statistics into the backbone's FrozenBN buffers
-        (`models/norm.py::fold_batch_stats`): the stand-in for a pretrained
-        checkpoint that seeded random weights need before they train."""
-        data, _ = self._inputs(images, im_info)
-        fold_batch_stats(self.model.backbone, data.permute(0, 3, 1, 2))
+        """Fold this batch's statistics into the model's FrozenBN buffers
+        (`fold_detector_stats`): the stand-in for a pretrained checkpoint
+        that seeded random weights need before they train."""
+        fold_detector_stats(self.model, *self._inputs(images, im_info))
 
     def _mark(self, phase):
         if self.timer is not None:

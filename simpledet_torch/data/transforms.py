@@ -1,7 +1,7 @@
 """Host-side record transforms of the flagship's chain: a copy of the classes
-of `simpledet_tpu/data/transforms.py` that `standard_transforms` and the
-flagship configs name, kept in the port so that it imports nothing of the
-JAX package.
+of `simpledet_tpu/data/transforms.py` that `standard_transforms`,
+`multiscale_transforms` and the flagship configs name, kept in the port so
+that it imports nothing of the JAX package.
 
 Each transform mutates a record dict of numpy arrays. Images stay HWC uint8
 through the chain: Norm2DImage is deferred to the device
@@ -77,27 +77,44 @@ def _scale_clip_gt(gt_bbox, scale, nh, nw):
     return gt
 
 
+def _resize(r, short, long_):
+    """Aspect-preserving resize of r's image to fit short x long; writes
+    im_info = [h', w', scale] and scales and clips the gt boxes."""
+    import cv2
+
+    img = r["image"]
+    h, w = img.shape[:2]
+    scale = min(short / min(h, w), long_ / max(h, w))
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    r["image"] = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
+    if len(r["gt_bbox"]):
+        r["gt_bbox"] = _scale_clip_gt(r["gt_bbox"], scale, nh, nw)
+    r["im_info"] = np.array([nh, nw, scale], np.float32)
+    return r
+
+
 class Resize2DImageBbox(DetectionAugmentation):
-    """Aspect-preserving short/long-side resize; writes im_info = [h', w',
-    scale] and scales and clips the gt boxes."""
+    """Aspect-preserving short/long-side resize (`_resize`)."""
 
     def __init__(self, pResize):
         self.short = pResize.short
         self.long = pResize.long
 
     def apply(self, r):
-        import cv2
+        return _resize(r, self.short, self.long)
 
-        img = r["image"]
-        h, w = img.shape[:2]
-        scale = min(self.short / min(h, w), self.long / max(h, w))
-        nh, nw = int(round(h * scale)), int(round(w * scale))
-        r["image"] = cv2.resize(img, (nw, nh),
-                                interpolation=cv2.INTER_LINEAR)
-        if len(r["gt_bbox"]):
-            r["gt_bbox"] = _scale_clip_gt(r["gt_bbox"], scale, nh, nw)
-        r["im_info"] = np.array([nh, nw, scale], np.float32)
-        return r
+
+class RandResize2DImageBbox(DetectionAugmentation):
+    """Multi-scale train resize: each record takes one of the (short, long)
+    pairs, drawn by numpy's global generator (`np.random.randint`, as the
+    JAX package draws it), then `_resize`."""
+
+    def __init__(self, pResize):
+        self.scales = list(zip(pResize.short, pResize.long))
+
+    def apply(self, r):
+        short, long_ = self.scales[np.random.randint(len(self.scales))]
+        return _resize(r, short, long_)
 
 
 class Flip2DImageBbox(DetectionAugmentation):
@@ -172,8 +189,9 @@ def apply_transforms(record, transforms):
 
 
 TRANSFORMS = {cls.__name__: cls for cls in (
-    ReadRoiRecord, Norm2DImage, Resize2DImageBbox, Flip2DImageBbox,
-    Pad2DImageBbox, ConvertImageFromHwcToChw, RenameRecord)}
+    ReadRoiRecord, Norm2DImage, Resize2DImageBbox, RandResize2DImageBbox,
+    Flip2DImageBbox, Pad2DImageBbox, ConvertImageFromHwcToChw,
+    RenameRecord)}
 
 
 def _registry():

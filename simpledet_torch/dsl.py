@@ -23,6 +23,16 @@ RetinaNet takes `RetinaNetNeck` (256 wide) and `RetinaNetHead` (towers as
 wide as RpnParam.head.conv_channel), fp32 only; RPN takes the flagship's
 backbone, neck and RPN head and builds `RpnOnly` (the JAX package's RPN
 detector also hosts FCOS, whose neck and head the port does not have).
+TridentFasterRcnn (every C4 Faster R-CNN: one branch, not scale-aware)
+takes a trident C4 backbone (`C4_BACKBONES`: its depth from its param
+class, its branches and dilations from the param class's `trident`, as
+`simpledet_tpu/dsl.py::TridentMXNetResNetV2` reads them), the identity
+`Neck`, `TridentRpnHead` (the FPN RPN head on the one stride-16 level,
+1024 channels in), `RoiAlign` (one level) and a C5 head (`BboxC5Head`,
+v2, or `BboxC5V1Head`, whose param class's `variant` picks v1 or v1b);
+its get_*_symbol keywords `num_branch`, `scaleaware` and `valid_ranges`
+(the spec's `options`). RPN takes either an FPN backbone with `FPNNeck`
+or a C4 one with `Neck` (`config/rpn_r50v2c4_1x.py`).
 """
 import torch
 
@@ -31,7 +41,7 @@ from simpledet_torch.core.config import read_config
 from simpledet_torch.models.cascade_rcnn import (CascadeRcnn,
                                                  is_class_agnostic)
 from simpledet_torch.models.faster_rcnn import FasterRcnn, RpnOnly
-from simpledet_torch.models.fpn import FPNNeck
+from simpledet_torch.models.fpn import FPNNeck, Neck
 from simpledet_torch.models.heads import Bbox2fcHead
 from simpledet_torch.models.mask_rcnn import MaskFasterRcnn, MaskHead4Conv
 from simpledet_torch.models.norm import normalizer_factory
@@ -39,6 +49,8 @@ from simpledet_torch.models.resnet import ResNet
 from simpledet_torch.models.retinanet import (RetinaNet, RetinaNetHead,
                                               RetinaNetNeck, RetinaSubnets)
 from simpledet_torch.models.rpn import FPNRpnHead, RpnConvHead
+from simpledet_torch.models.tridentnet import (BboxC5Head, TridentFasterRcnn,
+                                               TridentResNetC4)
 
 # the JAX DSL's FPN backbone classes (`simpledet_tpu/dsl.py:50-72`):
 # name -> (depth, ResNet variant)
@@ -46,8 +58,12 @@ BACKBONES = {"MSRAResNet50V1FPN": (50, "v1"),
              "MSRAResNet101V1FPN": (101, "v1"),
              "ResNet50V1bFPN": (50, "v1b"), "ResNet101V1bFPN": (101, "v1b"),
              "ResNet152V1bFPN": (152, "v1b"), "ResNet50V1dFPN": (50, "v1d")}
-_COMMON = {"neck": ("FPNNeck",), "rpn_head": ("FPNRpnHead",),
-           "roi_extractor": ("FPNRoiAlign",)}
+# the JAX DSL's trident C4 backbone classes (`simpledet_tpu/dsl.py:536-577`):
+# name -> ResNet variant
+C4_BACKBONES = {"TridentMXNetResNetV2": "v2", "TridentResNetV2C4": "v2",
+                "TridentResNetV1C4": "v1", "TridentResNetV1bC4": "v1b"}
+_COMMON = {"backbone": tuple(BACKBONES), "neck": ("FPNNeck",),
+           "rpn_head": ("FPNRpnHead",), "roi_extractor": ("FPNRoiAlign",)}
 _CASCADE_HEAD = ("CascadeBbox2fcHead",)
 # detector -> role -> the component classes the port builds for it
 SUPPORTED = {
@@ -60,8 +76,15 @@ SUPPORTED = {
                            bbox_head=("FPNBbox2fcHead",),
                            mask_head=("MaskFasterRcnn4ConvHead",),
                            bbox_post_processor=("BboxPostProcessor",)),
-    "RetinaNet": {"neck": ("RetinaNetNeck",), "rpn_head": ("RetinaNetHead",)},
-    "RPN": {"neck": ("FPNNeck",), "rpn_head": ("FPNRpnHead",)},
+    "RetinaNet": {"backbone": tuple(BACKBONES), "neck": ("RetinaNetNeck",),
+                  "rpn_head": ("RetinaNetHead",)},
+    "RPN": {"backbone": tuple(BACKBONES) + tuple(C4_BACKBONES),
+            "neck": ("FPNNeck", "Neck"),
+            "rpn_head": ("FPNRpnHead", "TridentRpnHead")},
+    "TridentFasterRcnn": {"backbone": tuple(C4_BACKBONES), "neck": ("Neck",),
+                          "rpn_head": ("TridentRpnHead",),
+                          "roi_extractor": ("RoiAlign",),
+                          "bbox_head": ("BboxC5Head", "BboxC5V1Head")},
 }
 # roles that only the test symbol is given
 TEST_ONLY = ("bbox_post_processor",)
@@ -84,7 +107,7 @@ def _norm(p):
 def _require(detector, comps):
     if detector not in SUPPORTED:
         raise NotImplementedError(f"detector {detector!r} is not ported yet")
-    roles = dict(SUPPORTED[detector], backbone=BACKBONES)
+    roles = SUPPORTED[detector]
     for role, comp in comps.items():
         if comp.name not in roles.get(role, ()):
             raise NotImplementedError(f"{role} {comp.name!r} of {detector} "
@@ -123,29 +146,72 @@ def _retinanet(comps, backbone):
                      subnets, head)
 
 
+def _backbone(comp, depth):
+    """The FPN ResNet or the trident C4 ResNet of a backbone component."""
+    p = comp.param
+    if comp.name in C4_BACKBONES:
+        trident = p.trident or p
+        return TridentResNetC4(
+            depth or comp.depth or p.depth or 50, C4_BACKBONES[comp.name],
+            dtype=_dtype(p), norm=_norm(p),
+            num_branch=trident.num_branch or 3,
+            dilations=tuple(trident.branch_dilates or (1, 2, 3)))
+    bb_depth, variant = BACKBONES[comp.name]
+    return ResNet(depth or comp.depth or bb_depth, dtype=_dtype(p),
+                  norm=_norm(p), variant=variant)
+
+
+def _c5_head(comp, depth):
+    """BboxC5Head from BboxC5Head (v2) or BboxC5V1Head (its param class's
+    variant, v1 by default)."""
+    p = comp.param
+    num_reg = 2 if (p.regress_target.class_agnostic or False) \
+        else p.num_class
+    variant = "v2" if comp.name == "BboxC5Head" else (p.variant or "v1")
+    return BboxC5Head(p.num_class, num_reg, depth or p.depth or 50, variant,
+                      dtype=_dtype(p), norm=_norm(p))
+
+
+def _trident(spec, backbone, rpn_module, rpn, depth):
+    comps, opts = spec.components, spec.options or {}
+    kw = {}
+    if opts.get("valid_ranges") is not None:
+        kw["valid_ranges"] = tuple(tuple(v) for v in opts["valid_ranges"])
+    return TridentFasterRcnn(
+        backbone, Neck(), rpn_module, rpn, _c5_head(comps["bbox_head"], depth),
+        comps["roi_extractor"].param, comps["bbox_head"].param,
+        num_branch=opts.get("num_branch", 3),
+        scaleaware=opts.get("scaleaware", True), **kw)
+
+
 def build_detector(spec, *, depth=None):
-    """FasterRcnn, CascadeRcnn, MaskFasterRcnn, RetinaNet or RpnOnly (on
-    the CPU, weights not yet initialised) from a ConfigSpec. `depth`
-    overrides the backbone's depth (tests use 18)."""
+    """FasterRcnn, CascadeRcnn, MaskFasterRcnn, RetinaNet, RpnOnly or
+    TridentFasterRcnn (on the CPU, weights not yet initialised) from a
+    ConfigSpec. `depth` overrides the backbone's depth, and a C5 head's
+    (tests use 18)."""
     comps = spec.components
     _require(spec.detector, comps)
 
-    bb = comps["backbone"]
-    bb_depth, variant = BACKBONES[bb.name]
-    backbone = ResNet(depth or bb.depth or bb_depth, dtype=_dtype(bb.param),
-                      norm=_norm(bb.param), variant=variant)
+    backbone = _backbone(comps["backbone"], depth)
     if spec.detector == "RetinaNet":
         return _retinanet(comps, backbone)
-    neck = FPNNeck(backbone.out_channels, 256,
-                   dtype=_dtype(comps["neck"].param))
+    c4 = isinstance(backbone, TridentResNetC4)
+    if c4 != (comps["neck"].name == "Neck"):
+        raise NotImplementedError(f"{comps['neck'].name} on the backbone "
+                                  f"{comps['backbone'].name}")
+    neck = Neck() if c4 else FPNNeck(backbone.out_channels, 256,
+                                     dtype=_dtype(comps["neck"].param))
     p_rpn = comps["rpn_head"].param
     # as dsl.FPNRpnHead does: the conv head reads the dtype set here
     p_rpn.dtype = _dtype(p_rpn)
     rpn = FPNRpnHead(p_rpn)
     rpn_module = RpnConvHead(rpn.num_anchor, p_rpn.head.conv_channel or 256,
-                             256, dtype=p_rpn.dtype)
+                             backbone.out_channels if c4 else 256,
+                             dtype=p_rpn.dtype)
     if spec.detector == "RPN":
         return RpnOnly(backbone, neck, rpn_module, rpn)
+    if spec.detector == "TridentFasterRcnn":
+        return _trident(spec, backbone, rpn_module, rpn, depth)
     p_roi = comps["roi_extractor"].param
     in_features = p_roi.out_size ** 2 * 256
     if spec.detector == "CascadeRcnn":

@@ -116,9 +116,11 @@ class FasterRcnn(nn.Module):
 
     def extract_rois(self, pyramid, rois, p_roi=None):
         """rois [B, R, 4] -> [B, R, P, P, C] from the levels of p_roi (the
-        box head's RoiParam unless another is given: a mask branch's)."""
+        box head's RoiParam unless another is given: a mask branch's); a
+        C4 RoiParam gives one stride, 16."""
         p_roi = p_roi or self.p_roi
-        strides = tuple(p_roi.stride)
+        strides = (tuple(p_roi.stride) if hasattr(p_roi.stride, "__len__")
+                   else (p_roi.stride,))
         feats = [pyramid[f"stride{s}"].permute(0, 2, 3, 1).contiguous()
                  for s in strides]
         return multilevel_roi_align(
@@ -167,28 +169,37 @@ class FasterRcnn(nn.Module):
         proposal-target sample, losses, aux)."""
         if gt_bbox is None or generator is None:
             raise ValueError("train mode needs gt_bbox and a generator")
-        det = self.deterministic_sampling
         pyr = self.pyramid(data)
         rpn_out = self.rpn_module(pyr)
-        rpn_losses, rpn_aux = self.rpn.loss(generator, rpn_out, gt_bbox,
-                                            im_info, deterministic=det)
-        with torch.no_grad():
-            proposals, _ = self.rpn.proposals(rpn_out, im_info)
-            if self.fixed_proposals:
-                proposals = deterministic_proposals(gt_bbox,
-                                                    proposals.shape[1])
-            ps = self.rpn.p.subsample_proposal
-            pt = self.rpn.p.bbox_target
-            sample = batched_proposal_target(
-                generator, proposals, gt_bbox, image_rois=ps.image_roi,
-                fg_fraction=ps.fg_fraction, fg_thr=ps.fg_thr,
-                bg_thr_hi=ps.bg_thr_hi, bg_thr_lo=ps.bg_thr_lo,
-                num_reg_class=pt.num_reg_class,
-                class_agnostic=pt.class_agnostic or False,
-                proposal_wo_gt=ps.proposal_wo_gt or False,
-                bbox_mean=pt.mean, bbox_std=pt.std, bbox_weight=pt.weight,
-                deterministic=det)
+        rpn_losses, rpn_aux = self.rpn.loss(
+            generator, rpn_out, gt_bbox, im_info,
+            deterministic=self.deterministic_sampling)
+        sample = self.sample_rois(rpn_out, im_info, gt_bbox, generator)
+        losses, aux = self.head_losses(pyr, sample, rpn_losses, rpn_aux)
+        return pyr, sample, losses, aux
 
+    @torch.no_grad()
+    def sample_rois(self, rpn_out, im_info, gt_bbox, generator):
+        """The train proposals (or `deterministic_proposals` of gt_bbox)
+        and their proposal-target sample."""
+        proposals, _ = self.rpn.proposals(rpn_out, im_info)
+        if self.fixed_proposals:
+            proposals = deterministic_proposals(gt_bbox, proposals.shape[1])
+        ps = self.rpn.p.subsample_proposal
+        pt = self.rpn.p.bbox_target
+        return batched_proposal_target(
+            generator, proposals, gt_bbox, image_rois=ps.image_roi,
+            fg_fraction=ps.fg_fraction, fg_thr=ps.fg_thr,
+            bg_thr_hi=ps.bg_thr_hi, bg_thr_lo=ps.bg_thr_lo,
+            num_reg_class=pt.num_reg_class,
+            class_agnostic=pt.class_agnostic or False,
+            proposal_wo_gt=ps.proposal_wo_gt or False,
+            bbox_mean=pt.mean, bbox_std=pt.std, bbox_weight=pt.weight,
+            deterministic=self.deterministic_sampling)
+
+    def head_losses(self, pyr, sample, rpn_losses, rpn_aux):
+        """The box head on the sampled rois: (losses with the RPN's,
+        aux)."""
         roi_feat = self.extract_rois(pyr, sample["rois"])
         cls_logit, bbox_delta = self.bbox_head(roi_feat)
         losses = bbox_head_loss(
@@ -199,7 +210,7 @@ class FasterRcnn(nn.Module):
         losses.update(rpn_losses)
         aux = dict(rpn_aux, bbox_label=sample["label"],
                    bbox_cls_logit=cls_logit)
-        return pyr, sample, losses, aux
+        return losses, aux
 
     def init_weights(self, gen):
         for m in (self.backbone, self.neck, self.rpn_module, self.bbox_head):

@@ -3,7 +3,8 @@
 1x1 laterals and 3x3 output convs with bias; the top-down path is a nearest
 2x upsample cropped to the lateral's size; P6 = P5_conv[..., ::2, ::2].
 Returns {"stride4": P2, ..., "stride64": P6}, NCHW, in the compute dtype
-`dtype` of its convs; the top-down adds run in it too.
+`dtype` of its convs; the top-down adds run in it too. `Neck` is the C4
+detectors' identity neck (`simpledet_tpu/models/fpn.py::Neck`).
 """
 import torch
 from torch import nn
@@ -48,3 +49,13 @@ class FPNNeck(nn.Module):
             if isinstance(m, nn.Conv2d):
                 fan_in_uniform_(m.weight, gen)
                 m.bias.zero_()
+
+
+class Neck(nn.Module):
+    """The identity neck: the backbone's features as they are."""
+
+    def forward(self, feats):
+        return feats
+
+    def init_weights(self, gen):
+        pass

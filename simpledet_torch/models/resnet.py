@@ -13,6 +13,10 @@ simpledet_tpu/models/resnet.py, those variants).
   (32, 32, 64 wide, the first at stride 2) with Flax's SAME padding ((0, 1)
   at stride 2 on an even side: `SameConv2d`), each with its norm `bn0_i`
   and relu, then v1's max-pool.
+- v2 (`BottleneckV2`, pre-activation): norm and relu before the convs, the
+  projection shortcut on the pre-activated input, nothing after the add;
+  the stride on the 3x3 conv, padded (1, 1). The TridentNet backbones and
+  the C5 box head use it (`models/tridentnet.py`).
 Module names follow the Flax tree (`stage1_unit1.conv1`, `conv0_1`, ...), so
 `weights.from_flax` maps names one to one.
 
@@ -76,6 +80,30 @@ class Bottleneck(nn.Module):
                 residual = F.avg_pool2d(residual, 2, 2)
             residual = self.sc_bn(self.sc_conv(residual))
         return F.relu(y + residual)
+
+
+class BottleneckV2(nn.Module):
+    """The pre-activation unit (`simpledet_tpu/models/resnet.py::
+    BottleneckV2`)."""
+
+    def __init__(self, cin, filters, stride, dtype, norm):
+        super().__init__()
+        self.bn0 = norm(cin)
+        self.conv1 = conv(cin, filters, 1, dtype=dtype)
+        self.bn1 = norm(filters)
+        self.conv2 = conv(filters, filters, 3, stride, 1, dtype=dtype)
+        self.bn2 = norm(filters)
+        self.conv3 = conv(filters, filters * 4, 1, dtype=dtype)
+        self.has_sc = cin != filters * 4 or stride != 1
+        if self.has_sc:
+            self.sc_conv = conv(cin, filters * 4, 1, stride, dtype=dtype)
+
+    def forward(self, x):
+        pre = F.relu(self.bn0(x))
+        residual = self.sc_conv(pre) if self.has_sc else x
+        y = F.relu(self.bn1(self.conv1(pre)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        return self.conv3(y) + residual
 
 
 class ResNet(nn.Module):

@@ -9,7 +9,9 @@ the loader at batch 1 with the config's transforms, the checkpoint
 `TestParam.model.prefix` at TestParam.model.epoch or the newest one (with a
 SyncBN model's running statistics beside it), or a warning and seeded random
 weights; on the device the rpn_test forward of any detector that has one
-(FasterRcnn, CascadeRcnn, MaskFasterRcnn, RpnOnly); then, per image with gt,
+(FasterRcnn, CascadeRcnn, MaskFasterRcnn, RpnOnly, TridentFasterRcnn, whose
+proposals come branch-major, [nb * B, post]: an image's row is its first
+branch's, as rpn_test_net reads it); then, per image with gt,
 its valid proposals divided by im_info[2] and the share of its gt boxes that
 the first 100, 300 and 1000 proposals reach at IoU 0.5, 0.55, ..., 0.95.
 It logs `Recall@N: IoU=0.5 r  IoU=0.5:0.95 r` for each budget and returns

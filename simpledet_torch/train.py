@@ -4,9 +4,9 @@ Counterpart of the step loop of `detection_train.py` and `bench.py`: builds
 the config's train detector (seeded random weights) with its optimizer,
 schedule and frozen parameters, and trains it on synthetic uint8 images with
 20 random gt boxes per image (made as `bench.py` makes them, from --seed).
-Before the first step the backbone's FrozenBN buffers take the folded
-statistics of that batch (`Trainer.fold_batch_stats`), the stand-in for a
-pretrained checkpoint. A Mask R-CNN config's gt boxes each get the polygon
+Before the first step the backbone's FrozenBN buffers (and a C4 model's C5
+head's) take the folded statistics of that batch
+(`Trainer.fold_batch_stats`), the stand-in for a pretrained checkpoint. A Mask R-CNN config's gt boxes each get the polygon
 of their inscribed ellipse (`synthetic_gt_poly`).
 
     python -m simpledet_torch.train --config config/faster_r50v1_fpn_1x.py \

@@ -11,6 +11,8 @@ follow the Flax names, so a leaf `a/b/kernel` becomes `a.b.weight`:
     `conv_transpose2d` flipped. The shapes match either way (`mask_up` has
     as many inputs as outputs), so only the values show a missing flip;
   - a Dense kernel [in, out] becomes a Linear weight [out, in];
+  - a trident unit's shared 3 x 3 kernel, the leaf `conv2_kernel` (a
+    `self.param` of the unit, HWIO), keeps its name and becomes OIHW;
   - `bias` stays `bias`; FrozenBN `scale` / `bias` land on its buffers,
     SyncBN's `gamma` / `beta` and GroupNorm's `scale` / `bias` on their
     parameters.
@@ -28,6 +30,8 @@ from simpledet_torch.models.norm import batch_stat_names, set_has_stats
 LEAVES = ("bias", "scale", "gamma", "beta", "mean", "var")
 # modules whose Flax kernel is an nn.ConvTranspose's
 TRANSPOSED_CONVS = ("mask_up",)
+# conv kernels that are a module's own parameter, under their Flax names
+SHARED_KERNELS = ("conv2_kernel",)
 
 
 def _flatten(tree, prefix=()):
@@ -52,6 +56,8 @@ def convert_leaf(path, value):
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {value.ndim}")
         leaf = "weight"
+    elif leaf in SHARED_KERNELS:
+        value = value.transpose(3, 2, 0, 1)
     elif leaf not in LEAVES:
         raise ValueError(f"{'/'.join(path)}: unknown leaf {leaf!r}")
     return ".".join(mods + [leaf]), torch.from_numpy(
@@ -61,6 +67,8 @@ def convert_leaf(path, value):
 def flax_leaf(torch_name, value):
     """The Flax layout of a torch parameter or buffer (numpy), the inverse
     of convert_leaf's."""
+    if torch_name.split(".")[-1] in SHARED_KERNELS:
+        return value.transpose(2, 3, 1, 0)
     if not torch_name.endswith(".weight"):
         return value
     if value.ndim == 4 and torch_name.split(".")[-2] in TRANSPOSED_CONVS:

@@ -92,7 +92,9 @@ def _write_config(path, detector, call):
     ("FasterRcnn", "*parts[:4], bbox_head=parts[4]",
      r"keyword \(bbox_head\)"),
     ("FasterRcnn", "*parts[:4], 3", "is not a component"),
-    ("TridentFasterRcnn", "*parts", "TridentFasterRcnn"),
+    # a detector without roles (TridentFasterRcnn has them since it was
+    # ported)
+    ("TridentMaskRcnn", "*parts", "TridentMaskRcnn"),
 ])
 def test_reader_raises_on_a_component_it_cannot_place(tmp_path, detector,
                                                       call, what):

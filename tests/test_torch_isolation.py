@@ -70,6 +70,17 @@ def test_reading_and_building_imports_no_jax():
         "    for tr in (False, True):\n"
         "        net = build_detector(read_config(cfg, tr), depth=18)\n"
         "        assert net.backbone.variant in ('v1b', 'v1d'), cfg\n"
+        # C4 and TridentNet (the multi-scale chain imports
+        # simpledet_tpu.data.transforms, served by the port's), at depth 18
+        "import simpledet_torch.models.tridentnet\n"
+        "for cfg in ('tridentnet_r50v2c4_c5_1x', 'converge_trident', "
+        "'faster_r50v1c4_c5_512roi_1x_fp16', 'rpn_r50v2c4_1x', "
+        "'resnet_v1b/tridentnet_fast_r50v1bc4_c5_1x', "
+        "'tridentnet_r101v2c4_c5_multiscale_addminival_3x_fp16'):\n"
+        "    for tr in (False, True):\n"
+        "        net = build_detector(read_config(f'config/{cfg}.py', tr), "
+        "depth=18)\n"
+        "        assert net.backbone.out_channels == 1024, cfg\n"
         "for variant in ('v1b', 'v1d'):\n"
         "    os.environ['SIMPLEDET_MICRO_BACKBONE'] = variant\n"
         "    net = build_detector(read_config('config/micro_test.py', True))\n"

@@ -314,9 +314,12 @@ def test_flagship_config_builds_and_maps_all_leaves():
     # Mask-Scoring R-CNN: a detector whose components the reader has no
     # roles for (Mask R-CNN itself is read and built since it was ported)
     ("config/ms_r50v1_fpn_1x.py", "MaskScoringFasterRcnn"),
-    ("config/tridentnet_r50v2c4_c5_1x.py", "TridentFasterRcnn"),
+    # trident_c4_config with a backbone override the port does not have
+    # (TridentNet and the C4 Faster R-CNNs are read and built since they
+    # were ported)
+    ("config/dcn/faster_dcn_r50v1bc4_c5_512roi_1x.py", "DCNResNetC4S16"),
     # a config template that the port's copy does not hold
-    ("config/faster_r101v1c4_c5_512roi_1x_fp16.py", "trident_c4_config"),
+    ("config/cascade_r50v2_c5_red_1x.py", "cascade_c5_red_config"),
     # a detector whose components the reader has no roles for: it raises
     # rather than keeping the first five (its train symbol has a sixth)
     ("config/converge_kd.py", "FitNetFasterRcnn"),
