@@ -13,9 +13,13 @@ config: normalise, backbone, neck, subnets, decode and top-k, per-class
 NMS; for an RPN-only config the stages up to the proposals; for a C4 /
 TridentNet config: normalise, trunk (stem and stages 1-2), trident stage
 (stage 3 on every branch), RPN head, proposals, RoIAlign, C5 head, then the
-decode, the branches' merge and the per-class NMS), timing each stage
-with CUDA events over `count` requests, then traces `count` whole requests with
-torch.profiler for the device's busy share and the top kernels by device time.
+decode, the branches' merge and the per-class NMS; a DCN C4 config's
+backbone is one stage; a SEPC RetinaNet's neck splits into its FPN and its
+SEPC part), timing each stage with CUDA events over `count` requests, then
+traces `count` whole requests with torch.profiler for the device's busy
+share, the top kernels by device time and the device time of the profiler
+ranges the request entered (`PROFILER_RANGES`: the deformable convs'
+`deform_conv`, the DCN units' `dcn_unit`, SEPC's `sepc`, the mask branch's).
 Prints one JSON object with the card's name and power limit and how the
 config computes (fp32 without TF32, or bf16 with fp32 islands), as the infer
 CLI and chip_smoke.py run.
@@ -29,12 +33,18 @@ import torch
 from simpledet_torch.eval.postprocess import per_class_nms
 from simpledet_torch.infer import (Detector, card_name_and_power, full_fp32,
                                    precision, synthetic_batch)
+from simpledet_torch.models import dcn, mask_rcnn, sepc
 from simpledet_torch.models.cascade_rcnn import STAGES, CascadeRcnn
 from simpledet_torch.models.faster_rcnn import RpnOnly
+from simpledet_torch.models.mask_rcnn import MaskFasterRcnn
 from simpledet_torch.models.retinanet import RetinaNet
-from simpledet_torch.models.mask_rcnn import PROFILER_RANGES, MaskFasterRcnn
 from simpledet_torch.models.tridentnet import TridentFasterRcnn
 from simpledet_torch.ops.image import device_normalize
+
+# the models' torch.profiler ranges, each a span over the kernels launched
+# inside it
+PROFILER_RANGES = (mask_rcnn.PROFILER_RANGES + dcn.PROFILER_RANGES
+                   + sepc.PROFILER_RANGES)
 
 
 def cascade_stages(m, st, im_info):
@@ -81,6 +91,13 @@ def trident_stages(m, st, im_info, norm, nms):
         c4 = m.backbone.branches(st["trunk"])
         st["pyr"] = m.neck({"c4": c4, "stride16": c4})
 
+    def backbone():                     # a C4 ResNet without branches
+        st["pyr"] = m.pyramid(st["x"])
+
+    split = ([("trunk", trunk), ("trident_stage", trident_stage)]
+             if hasattr(m.backbone, "stem_and_trunk")
+             else [("backbone", backbone)])
+
     def rpn_head():
         st["rpn"] = m.rpn_module(st["pyr"])
 
@@ -98,8 +115,7 @@ def trident_stages(m, st, im_info, norm, nms):
             *m.predict(*st["head"], st["props"], im_info_b), b)
         return nms()
 
-    return [("normalize", norm), ("trunk", trunk),
-            ("trident_stage", trident_stage), ("rpn_head", rpn_head),
+    return [("normalize", norm), *split, ("rpn_head", rpn_head),
             ("proposals", proposals), ("roi_align", roi_align),
             ("c5_head", c5_head), ("decode_nms", decode_nms)]
 
@@ -142,6 +158,15 @@ def stages(det, images, im_info):
         def neck():
             st["pyr"] = m.neck(st["feats"])
 
+        def fpn():
+            st["fpn"] = m.neck.fpn(st["feats"])
+
+        def sepc_part():
+            st["pyr"] = m.neck.sepc(st["fpn"])
+
+        necks = ([("neck_fpn", fpn), ("neck_sepc", sepc_part)]
+                 if isinstance(m.neck, sepc.SEPCNeck) else [("neck", neck)])
+
         def subnets():
             st["outs"] = m.head_module(st["pyr"])
 
@@ -149,7 +174,7 @@ def stages(det, images, im_info):
             out = m.test_outputs(st["outs"], im_info)
             st["score"], st["boxes"] = out["cls_score"], out["bbox_xyxy"]
 
-        return [("normalize", norm), ("backbone", backbone), ("neck", neck),
+        return [("normalize", norm), ("backbone", backbone), *necks,
                 ("subnets", subnets), ("decode_topk", decode),
                 ("per_class_nms", nms)]
     if isinstance(m, TridentFasterRcnn):
@@ -205,9 +230,9 @@ def device_profile(fn, count, top=15):
     device busy ms per call, {kernel: device ms per call} of the `top`
     kernels, {profiler range: device ms per call of the kernels launched
     inside it} for the model's ranges that the calls entered
-    (`models/mask_rcnn.py::PROFILER_RANGES`)). Device-side events only
-    (kernels, copies): an operator's row repeats the device time of the
-    kernels it launched."""
+    (`PROFILER_RANGES`; a training step's: its forward's)). Device-side
+    events only (kernels, copies): an operator's row repeats the device
+    time of the kernels it launched."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act, acc_events=True) as prof:
@@ -248,7 +273,7 @@ def main(argv=None):
     images, im_info = synthetic_batch(args.batch, h, w, args.seed)
     images, im_info = images.to(det.device), im_info.to(det.device)
     stage_ms, wall = stage_times(stages(det, images, im_info), args.count)
-    traced_ms, busy_ms, top, _ = device_profile(
+    traced_ms, busy_ms, top, ranges = device_profile(
         lambda: det.serve(images, im_info), args.count)
     print(json.dumps({
         "card": card_name_and_power(), "shape": [h, w], "batch": args.batch,
@@ -259,6 +284,7 @@ def main(argv=None):
         "device_busy_ms_per_request": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / traced_ms),
         "top_kernels_ms_per_request": top,
+        "ranges_device_ms_per_request": ranges,
     }, indent=1))
 
 

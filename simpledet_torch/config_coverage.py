@@ -3,8 +3,8 @@
     python -m simpledet_torch.config_coverage [--depth 18] [--list]
 
 Each config file is read (`core.config.read_config`) and its detector built
-(`dsl.build_detector`, the backbone at `--depth`, weights not initialised)
-for its test and its train symbol. A file counts as built when both modes
+(`dsl.build_detector`, the backbone at `--depth`, on the meta device: no
+weights are allocated) for its test and its train symbol. A file counts as built when both modes
 build. Prints the count, then each NotImplementedError (or other error)
 message with the number of files that raised it, most first; `--list`
 names the files under each. Runs on the CPU; nothing is trained or served.
@@ -13,6 +13,8 @@ import argparse
 import collections
 import glob
 import os
+
+import torch
 
 from simpledet_torch.core.config import read_config
 from simpledet_torch.dsl import build_detector
@@ -23,7 +25,9 @@ def probe(path, depth):
     one-line message."""
     try:
         for is_train in (False, True):
-            build_detector(read_config(path, is_train=is_train), depth=depth)
+            spec = read_config(path, is_train=is_train)
+            with torch.device("meta"):
+                build_detector(spec, depth=depth)
     except Exception as e:         # noqa: BLE001 - every failure is counted
         kind = "" if isinstance(e, NotImplementedError) else \
             f"{type(e).__name__}: "

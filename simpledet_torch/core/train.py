@@ -23,30 +23,26 @@ from simpledet_torch import resolve_device
 from simpledet_torch.core.optimizer import freeze_mask, make_optimizer, set_lr
 from simpledet_torch.core.schedule import from_optimize_param
 from simpledet_torch.dsl import detector_from_config
-from simpledet_torch.models.norm import FrozenBN, fold_batch_stats
+from simpledet_torch.models.norm import fold_batch_stats
 from simpledet_torch.ops.image import device_normalize
 from simpledet_torch.parallel import dist
 
 
 def fold_detector_stats(model, data, im_info):
-    """Fold one batch's statistics into a detector's FrozenBN buffers
-    (`models/norm.py::fold_batch_stats`): the backbone's on the normalised
-    batch data [B, H, W, 3], then, where the box head has FrozenBN of its
-    own (a C4 model's C5 head, a stage of the same pretrained ResNet), the
-    head's on the roi features of the batch's test-mode proposals."""
-    fold_batch_stats(model.backbone, data.permute(0, 3, 1, 2))
-    head = getattr(model, "bbox_head", None)
-    if head is None or not any(isinstance(m, FrozenBN)
-                               for m in head.modules()):
-        return
-    feats = []
-    hook = head.register_forward_pre_hook(
-        lambda mod, args: feats.append(args[0]))
+    """Fold one batch's statistics into every FrozenBN of a detector
+    (`models/norm.py::fold_batch_stats`), layer by layer in the order of its
+    test forward on the normalised batch data [B, H, W, 3]: the backbone's
+    on the batch, then each later one on what reaches it through the layers
+    folded before it (a BN neck's laterals and outputs, RetinaNetHeadWithBN's
+    per-level norms, a C4 model's C5 head on the rois of its proposals). The
+    forward runs in eval mode, so that no SyncBN takes a step of its running
+    statistics; a detector without FrozenBN is left as it is."""
+    was_training = model.training
+    model.eval()
     try:
-        model(data, im_info, mode="test")
+        fold_batch_stats(model, data, im_info, mode="test")
     finally:
-        hook.remove()
-    fold_batch_stats(head, feats[0])
+        model.train(was_training)
 
 
 class Trainer:

@@ -33,6 +33,21 @@ v2, or `BboxC5V1Head`, whose param class's `variant` picks v1 or v1b);
 its get_*_symbol keywords `num_branch`, `scaleaware` and `valid_ranges`
 (the spec's `options`). RPN takes either an FPN backbone with `FPNNeck`
 or a C4 one with `Neck` (`config/rpn_r50v2c4_1x.py`).
+The DCN hybrids (`HYBRID_BACKBONES`, `models/dcn/builder.py`'s names): v1b
+ResNets whose last `num_cX_block` units of each stage (the backbone param
+class's) are DCN or DCNv2 bottlenecks, at the param class's depth (50
+unset); `DCNResNetFPN` / `DCNv2ResNetFPN` on FasterRcnn, and the C4 ones
+`DCNResNetC4S16` / `DCNv2ResNetC4S16` (stages 1-3, c4 published as
+stride16) on TridentFasterRcnn. RetinaNet's necks: `RetinaNetNeckWithBN`
+(the neck with its param class's norm), `NASFPNNeck` and
+`TopDownBottomUpFPNNeck` (`dim_reduced` wide, `num_stage`, `S0_kernel`; a
+norm only for a syncbn, localbn or gn normalizer, as
+`simpledet_tpu/dsl.py::_NeckWrapper` gives one) and
+`RetinaNetNeckWithBNWithSEPC(NeckParam, SEPCParam)` (the BN neck, then
+SEPC: `Pconv_num` (4 unset), `pconv_deform`, `lcconv_deform`, `ibn`, read
+from the second param class, none given reading as unset); its heads
+`RetinaNetHeadWithBN` (a norm per tower conv and level) and
+`RetinaNetHeadWithBNWithSEPC` (predictors on the SEPC halves).
 """
 import torch
 
@@ -40,15 +55,19 @@ from simpledet_torch import resolve_device
 from simpledet_torch.core.config import read_config
 from simpledet_torch.models.cascade_rcnn import (CascadeRcnn,
                                                  is_class_agnostic)
+from simpledet_torch.models.dcn import (C4StrideKeyAdapter, DCNBottleneck,
+                                        DCNv2Bottleneck)
 from simpledet_torch.models.faster_rcnn import FasterRcnn, RpnOnly
 from simpledet_torch.models.fpn import FPNNeck, Neck
 from simpledet_torch.models.heads import Bbox2fcHead
 from simpledet_torch.models.mask_rcnn import MaskFasterRcnn, MaskHead4Conv
+from simpledet_torch.models.nasfpn import NASFPNNeck, TopDownBottomUpFPNNeck
 from simpledet_torch.models.norm import normalizer_factory
 from simpledet_torch.models.resnet import ResNet
 from simpledet_torch.models.retinanet import (RetinaNet, RetinaNetHead,
                                               RetinaNetNeck, RetinaSubnets)
 from simpledet_torch.models.rpn import FPNRpnHead, RpnConvHead
+from simpledet_torch.models.sepc import SEPCFPN, SEPCNeck, SEPCSubnets
 from simpledet_torch.models.tridentnet import (BboxC5Head, TridentFasterRcnn,
                                                TridentResNetC4)
 
@@ -62,12 +81,24 @@ BACKBONES = {"MSRAResNet50V1FPN": (50, "v1"),
 # name -> ResNet variant
 C4_BACKBONES = {"TridentMXNetResNetV2": "v2", "TridentResNetV2C4": "v2",
                 "TridentResNetV1C4": "v1", "TridentResNetV1bC4": "v1b"}
+# the DCN hybrids (`simpledet_tpu/dsl.py:94-119` through
+# `models/dcn/builder.py`): name -> (special block, stages)
+HYBRID_BACKBONES = {"DCNResNetFPN": (DCNBottleneck, 4),
+                    "DCNv2ResNetFPN": (DCNv2Bottleneck, 4),
+                    "DCNResNetC4S16": (DCNBottleneck, 3),
+                    "DCNv2ResNetC4S16": (DCNv2Bottleneck, 3)}
+RETINA_NECKS = ("RetinaNetNeck", "RetinaNetNeckWithBN", "NASFPNNeck",
+                "TopDownBottomUpFPNNeck", "RetinaNetNeckWithBNWithSEPC")
+RETINA_HEADS = ("RetinaNetHead", "RetinaNetHeadWithBN",
+                "RetinaNetHeadWithBNWithSEPC")
 _COMMON = {"backbone": tuple(BACKBONES), "neck": ("FPNNeck",),
            "rpn_head": ("FPNRpnHead",), "roi_extractor": ("FPNRoiAlign",)}
 _CASCADE_HEAD = ("CascadeBbox2fcHead",)
 # detector -> role -> the component classes the port builds for it
 SUPPORTED = {
-    "FasterRcnn": dict(_COMMON, bbox_head=("FPNBbox2fcHead", "Bbox2fcHead")),
+    "FasterRcnn": dict(_COMMON, backbone=tuple(BACKBONES) + (
+        "DCNResNetFPN", "DCNv2ResNetFPN"),
+        bbox_head=("FPNBbox2fcHead", "Bbox2fcHead")),
     "CascadeRcnn": dict(_COMMON, bbox_head=_CASCADE_HEAD,
                         bbox_head_2nd=_CASCADE_HEAD,
                         bbox_head_3rd=_CASCADE_HEAD),
@@ -76,12 +107,13 @@ SUPPORTED = {
                            bbox_head=("FPNBbox2fcHead",),
                            mask_head=("MaskFasterRcnn4ConvHead",),
                            bbox_post_processor=("BboxPostProcessor",)),
-    "RetinaNet": {"backbone": tuple(BACKBONES), "neck": ("RetinaNetNeck",),
-                  "rpn_head": ("RetinaNetHead",)},
+    "RetinaNet": {"backbone": tuple(BACKBONES), "neck": RETINA_NECKS,
+                  "rpn_head": RETINA_HEADS},
     "RPN": {"backbone": tuple(BACKBONES) + tuple(C4_BACKBONES),
             "neck": ("FPNNeck", "Neck"),
             "rpn_head": ("FPNRpnHead", "TridentRpnHead")},
-    "TridentFasterRcnn": {"backbone": tuple(C4_BACKBONES), "neck": ("Neck",),
+    "TridentFasterRcnn": {"backbone": tuple(C4_BACKBONES) + (
+        "DCNResNetC4S16", "DCNv2ResNetC4S16"), "neck": ("Neck",),
                           "rpn_head": ("TridentRpnHead",),
                           "roi_extractor": ("RoiAlign",),
                           "bbox_head": ("BboxC5Head", "BboxC5V1Head")},
@@ -132,6 +164,34 @@ def _mask_head(comp):
     return MaskHead4Conv(p_bbox.num_class, 256, p_mask.dim_reduced or 256)
 
 
+def _retina_neck(comp, in_channels):
+    """(neck, its output channels) of a RetinaNet neck component."""
+    p = comp.param
+    if comp.name == "RetinaNetNeck":
+        return RetinaNetNeck(in_channels, 256), 256
+    if comp.name == "RetinaNetNeckWithBN":
+        return RetinaNetNeck(in_channels, 256, norm=_norm(p)), 256
+    if comp.name == "RetinaNetNeckWithBNWithSEPC":
+        ps = comp.params[1] if len(comp.params) > 1 else None
+        sepc = SEPCFPN(256, pconv_num=(ps and ps.Pconv_num) or 4,
+                       pconv_deform=bool(ps and ps.pconv_deform),
+                       lcconv_deform=bool(ps and ps.lcconv_deform),
+                       ibn=bool(ps and ps.ibn))
+        return SEPCNeck(RetinaNetNeck(in_channels, 256, norm=_norm(p)),
+                        sepc), 512
+    n = p.normalizer
+    norm = (normalizer_factory(n.type) if n is not None and n.type in
+            ("syncbn", "localbn", "gn") else None)
+    filters = p.dim_reduced or 256
+    kw = {"num_stage": p.num_stage} if p.num_stage else {}
+    if comp.name == "NASFPNNeck":
+        if p.S0_kernel:
+            kw["s0_kernel"] = p.S0_kernel
+        return NASFPNNeck(in_channels, filters, norm=norm, **kw), filters
+    return TopDownBottomUpFPNNeck(in_channels, filters, norm=norm,
+                                  **kw), filters
+
+
 def _retinanet(comps, backbone):
     """RetinaNet from its neck's and head's param classes; fp32 only."""
     for role in ("backbone", "neck", "rpn_head"):
@@ -139,16 +199,32 @@ def _retinanet(comps, backbone):
             raise NotImplementedError(
                 f"the bf16 RetinaNet ({role} {comps[role].name} sets fp16) "
                 "is not ported yet")
-    head = RetinaNetHead(comps["rpn_head"].param)
-    subnets = RetinaSubnets(head.num_anchor, head.num_fg_class,
-                            head.p.head.conv_channel or 256, 256)
-    return RetinaNet(backbone, RetinaNetNeck(backbone.out_channels[1:], 256),
-                     subnets, head)
+    neck, width = _retina_neck(comps["neck"], backbone.out_channels[1:])
+    comp = comps["rpn_head"]
+    head = RetinaNetHead(comp.param)
+    if comp.name == "RetinaNetHeadWithBNWithSEPC":
+        subnets = SEPCSubnets(head.num_anchor, head.num_fg_class, width // 2)
+    else:
+        norm = _norm(comp.param) if comp.name == "RetinaNetHeadWithBN" \
+            else None
+        subnets = RetinaSubnets(head.num_anchor, head.num_fg_class,
+                                head.p.head.conv_channel or 256, width,
+                                norm=norm, strides=head.strides)
+    return RetinaNet(backbone, neck, subnets, head)
 
 
 def _backbone(comp, depth):
-    """The FPN ResNet or the trident C4 ResNet of a backbone component."""
+    """The FPN ResNet, the trident C4 ResNet or the DCN hybrid of a
+    backbone component."""
     p = comp.param
+    if comp.name in HYBRID_BACKBONES:
+        block, stages = HYBRID_BACKBONES[comp.name]
+        resnet = ResNet(depth or p.depth or 50, dtype=_dtype(p),
+                        norm=_norm(p), variant="v1b", num_stages=stages,
+                        num_special=tuple(getattr(p, f"num_c{s}_block") or 0
+                                          for s in range(2, 6)),
+                        special_block=block)
+        return C4StrideKeyAdapter(resnet) if stages == 3 else resnet
     if comp.name in C4_BACKBONES:
         trident = p.trident or p
         return TridentResNetC4(
@@ -195,7 +271,7 @@ def build_detector(spec, *, depth=None):
     backbone = _backbone(comps["backbone"], depth)
     if spec.detector == "RetinaNet":
         return _retinanet(comps, backbone)
-    c4 = isinstance(backbone, TridentResNetC4)
+    c4 = isinstance(backbone, (TridentResNetC4, C4StrideKeyAdapter))
     if c4 != (comps["neck"].name == "Neck"):
         raise NotImplementedError(f"{comps['neck'].name} on the backbone "
                                   f"{comps['backbone'].name}")

@@ -52,10 +52,11 @@ class Linear(nn.Linear):
                          dt, -1)
 
 
-def same_pads(n, k, s):
+def same_pads(n, k, s, d=1):
     """(before, after) padding of one side of length n under Flax's SAME
-    for a k-wide kernel at stride s."""
-    total = max((-(-n // s) - 1) * s + k - n, 0)
+    for a k-wide kernel at stride s and dilation d (its extent (k - 1) * d
+    + 1)."""
+    total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
     return total // 2, total - total // 2
 
 
@@ -69,8 +70,9 @@ class SameConv2d(nn.Conv2d):
 
     def forward(self, x):
         (k_h, k_w), (s_h, s_w) = self.kernel_size, self.stride
-        top, bottom = same_pads(x.shape[2], k_h, s_h)
-        left, right = same_pads(x.shape[3], k_w, s_w)
+        d_h, d_w = self.dilation
+        top, bottom = same_pads(x.shape[2], k_h, s_h, d_h)
+        left, right = same_pads(x.shape[3], k_w, s_w, d_w)
         x = F.pad(x, (left, right, top, bottom))
         dt = self.compute_dtype
         if dt == torch.float32:

@@ -194,11 +194,12 @@ def set_has_stats(model, value=True):
 
 
 @torch.no_grad()
-def fold_batch_stats(model, *inputs, eps=1e-5):
+def fold_batch_stats(model, *inputs, eps=1e-5, **kwargs):
     """Give every FrozenBN of `model` the scale and bias that folding a
     BatchNorm with gamma 1, beta 0 and the statistics of this batch would
     give: per channel, scale = 1 / sqrt(var + eps), bias = -mean * scale,
-    taken layer by layer in forward order on `model(*inputs)`.
+    taken layer by layer in forward order on `model(*inputs, **kwargs)`
+    (a layer called more than once keeps its last call's).
 
     A stand-in for a pretrained checkpoint's folded statistics: with seeded
     random convs and identity FrozenBN, activations grow to the scale of the
@@ -217,7 +218,7 @@ def fold_batch_stats(model, *inputs, eps=1e-5):
     if not hooks:
         return
     try:
-        model(*inputs)
+        model(*inputs, **kwargs)
     finally:
         for h in hooks:
             h.remove()

@@ -17,6 +17,10 @@ simpledet_tpu/models/resnet.py, those variants).
   projection shortcut on the pre-activated input, nothing after the add;
   the stride on the 3x3 conv, padded (1, 1). The TridentNet backbones and
   the C5 box head use it (`models/tridentnet.py`).
+- Special blocks (the DCN hybrids, `models/dcn.py`): the last
+  `num_special[s]` units of stage s + 1 are `special_block`s, built with
+  `Bottleneck`'s arguments but no variant (`simpledet_tpu/models/resnet.py:
+  203-213`); `num_stages` 3 stops at c4 (the C4 backbones).
 Module names follow the Flax tree (`stage1_unit1.conv1`, `conv0_1`, ...), so
 `weights.from_flax` maps names one to one.
 
@@ -110,7 +114,8 @@ class ResNet(nn.Module):
     """NCHW in, {"c2": ..., "c5": ...} stage features out."""
 
     def __init__(self, depth=50, dtype=torch.float32, norm=None,
-                 variant="v1"):
+                 variant="v1", num_stages=4, num_special=(0, 0, 0, 0),
+                 special_block=None):
         super().__init__()
         if variant not in VARIANTS:
             raise NotImplementedError(f"ResNet variant {variant!r} is not "
@@ -133,17 +138,20 @@ class ResNet(nn.Module):
         self.units = []
         cin = 64
         for stage, (n_unit, filters) in enumerate(
-                zip(RESNET_UNITS[depth], (64, 128, 256, 512))):
+                zip(RESNET_UNITS[depth][:num_stages], (64, 128, 256, 512))):
             names = []
+            n_special = num_special[stage] if special_block else 0
             for unit in range(n_unit):
                 name = f"stage{stage + 1}_unit{unit + 1}"
                 stride = 2 if stage > 0 and unit == 0 else 1
-                self.add_module(name, Bottleneck(cin, filters, stride, dtype,
-                                                 norm, variant))
+                self.add_module(name, special_block(
+                    cin, filters, stride, dtype, norm)
+                    if unit >= n_unit - n_special else
+                    Bottleneck(cin, filters, stride, dtype, norm, variant))
                 cin = filters * 4
                 names.append(name)
             self.units.append(names)
-        self.out_channels = (256, 512, 1024, 2048)
+        self.out_channels = (256, 512, 1024, 2048)[:num_stages]
 
     def forward(self, x):
         for name in self.stem:                  # conv0 computes in dtype
@@ -158,6 +166,12 @@ class ResNet(nn.Module):
         return feats
 
     def init_weights(self, gen):
+        """Flax's inits: lecun_normal for each nn.Conv kernel; a special
+        block's own layers (a deformable conv's kernel and its zero offset
+        conv) as that layer initialises them."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 lecun_normal_(m.weight, gen)
+        for m in self.modules():
+            if m is not self and hasattr(m, "init_weights"):
+                m.init_weights(gen)

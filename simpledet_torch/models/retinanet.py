@@ -8,6 +8,12 @@ outputs are permuted to NHWC before any reshape, so anchors run in the JAX
 package's (level, y, x, anchor) order and class scores in (y, x, anchor,
 class) order. Flax's SAME padding on the stride-2 P6 and P7 convs pads (0, 1)
 along an even side: `models/layers.py::SameConv2d` pads as Flax does.
+
+With a `norm` (`RetinaNetNeckWithBN`, `RetinaNetHeadWithBN`), the neck
+normalises each lateral (`P*_lateral_norm`) and each output
+(`P*_norm`), and the subnets normalise each tower conv's output on each
+level with a norm of its own (`cls_conv{i}_{stride key}_norm`), before the
+relu, as `simpledet_tpu/models/retinanet.py:37-130` does.
 """
 import math
 
@@ -37,7 +43,7 @@ class RetinaNetNeck(nn.Module):
     the lateral's shape), 3x3 output convs, P6 a 3x3 stride-2 conv on C5,
     P7 one on relu(P6)."""
 
-    def __init__(self, in_channels, filters):
+    def __init__(self, in_channels, filters, norm=None):
         super().__init__()
         for stage, cin in zip((3, 4, 5), in_channels):
             self.add_module(f"P{stage}_lateral", nn.Conv2d(cin, filters, 1))
@@ -45,18 +51,28 @@ class RetinaNetNeck(nn.Module):
                             nn.Conv2d(filters, filters, 3, padding=1))
         self.P6_conv = SameConv2d(in_channels[2], filters, 3, stride=2)
         self.P7_conv = SameConv2d(filters, filters, 3, stride=2)
+        self.has_norm = norm is not None
+        if self.has_norm:
+            for name in ("P3_lateral", "P4_lateral", "P5_lateral", "P3",
+                         "P4", "P5", "P6", "P7"):
+                self.add_module(f"{name}_norm", norm(filters))
+
+    def _norm(self, x, name):
+        return getattr(self, f"{name}_norm")(x) if self.has_norm else x
 
     def forward(self, feats):
         c3, c4, c5 = feats["c3"], feats["c4"], feats["c5"]
-        p5 = self.P5_lateral(c5)
-        p4_la = self.P4_lateral(c4)
+        p5 = self._norm(self.P5_lateral(c5), "P5_lateral")
+        p4_la = self._norm(self.P4_lateral(c4), "P4_lateral")
         p4 = upsample2x_to(p5, p4_la.shape[2:]) + p4_la
-        p3_la = self.P3_lateral(c3)
+        p3_la = self._norm(self.P3_lateral(c3), "P3_lateral")
         p3 = upsample2x_to(p4, p3_la.shape[2:]) + p3_la
-        p6 = self.P6_conv(c5)
-        return {"stride8": self.P3_conv(p3), "stride16": self.P4_conv(p4),
-                "stride32": self.P5_conv(p5), "stride64": p6,
-                "stride128": self.P7_conv(F.relu(p6))}
+        p6 = self._norm(self.P6_conv(c5), "P6")
+        return {"stride8": self._norm(self.P3_conv(p3), "P3"),
+                "stride16": self._norm(self.P4_conv(p4), "P4"),
+                "stride32": self._norm(self.P5_conv(p5), "P5"),
+                "stride64": p6,
+                "stride128": self._norm(self.P7_conv(F.relu(p6)), "P7")}
 
     @torch.no_grad()
     def init_weights(self, gen):
@@ -69,28 +85,37 @@ class RetinaNetNeck(nn.Module):
 class RetinaSubnets(nn.Module):
     """The cls and bbox towers (NUM_CONV 3x3 convs with relu each), shared
     by every level, and their predictors: {stride: (cls_logit [B, A*(C-1),
-    H, W], bbox_delta [B, A*4, H, W])}."""
+    H, W], bbox_delta [B, A*4, H, W])}. With a `norm`, each tower conv of
+    each level (`strides`) has a norm of its own before its relu."""
 
-    def __init__(self, num_anchor, num_fg_class, conv_channel, in_channels):
+    def __init__(self, num_anchor, num_fg_class, conv_channel, in_channels,
+                 norm=None, strides=(8, 16, 32, 64, 128)):
         super().__init__()
+        self.has_norm = norm is not None
         for branch in ("cls", "bbox"):
             cin = in_channels
             for i in range(1, NUM_CONV + 1):
                 self.add_module(f"{branch}_conv{i}",
                                 nn.Conv2d(cin, conv_channel, 3, padding=1))
                 cin = conv_channel
+                for s in strides if self.has_norm else ():
+                    self.add_module(f"{branch}_conv{i}_stride{s}_norm",
+                                    norm(conv_channel))
         self.cls_pred = nn.Conv2d(conv_channel, num_anchor * num_fg_class, 3,
                                   padding=1)
         self.bbox_pred = nn.Conv2d(conv_channel, num_anchor * 4, 3, padding=1)
 
-    def tower(self, branch, x):
+    def tower(self, branch, x, key=None):
         for i in range(1, NUM_CONV + 1):
-            x = F.relu(getattr(self, f"{branch}_conv{i}")(x))
+            x = getattr(self, f"{branch}_conv{i}")(x)
+            if self.has_norm:
+                x = getattr(self, f"{branch}_conv{i}_{key}_norm")(x)
+            x = F.relu(x)
         return x
 
     def forward(self, pyramid):
-        return {key: (self.cls_pred(self.tower("cls", pyramid[key])),
-                      self.bbox_pred(self.tower("bbox", pyramid[key])))
+        return {key: (self.cls_pred(self.tower("cls", pyramid[key], key)),
+                      self.bbox_pred(self.tower("bbox", pyramid[key], key)))
                 for key in level_keys(pyramid)}
 
     @torch.no_grad()

@@ -19,8 +19,9 @@ prints each step's losses, then ms/step and img/s over the steps after the
 first two, and the forward / backward / optimizer split by CUDA events, with
 the card's name and power limit. On the card it then traces 3 more steps
 with torch.profiler and prints the device's idle share and its top kernels.
-For a Mask R-CNN the trace also gives the device time of the mask branch's
-profiler ranges (mask targets, mask RoIAlign, mask head).
+The trace also gives the device time of the model's profiler ranges in the
+forward (`breakdown.PROFILER_RANGES`: a Mask R-CNN's mask targets, mask
+RoIAlign and mask head, the deformable convs, the DCN units, SEPC).
 `python -m simpledet_torch.detection_train` trains on a roidb through the
 loader and writes checkpoints.
 """

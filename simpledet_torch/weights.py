@@ -67,11 +67,12 @@ def convert_leaf(path, value):
 def flax_leaf(torch_name, value):
     """The Flax layout of a torch parameter or buffer (numpy), the inverse
     of convert_leaf's."""
-    if torch_name.split(".")[-1] in SHARED_KERNELS:
+    *mods, leaf = torch_name.split(".")
+    if leaf in SHARED_KERNELS:
         return value.transpose(2, 3, 1, 0)
-    if not torch_name.endswith(".weight"):
+    if leaf != "weight":
         return value
-    if value.ndim == 4 and torch_name.split(".")[-2] in TRANSPOSED_CONVS:
+    if value.ndim == 4 and mods and mods[-1] in TRANSPOSED_CONVS:
         return value.transpose(2, 3, 0, 1)[::-1, ::-1]
     return value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
 

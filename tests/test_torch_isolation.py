@@ -81,6 +81,21 @@ def test_reading_and_building_imports_no_jax():
         "        net = build_detector(read_config(f'config/{cfg}.py', tr), "
         "depth=18)\n"
         "        assert net.backbone.out_channels == 1024, cfg\n"
+        # DCN, NAS-FPN / TDBU and SEPC, at depth 18 on the meta device
+        "import simpledet_torch.models.dcn, simpledet_torch.models.nasfpn\n"
+        "import simpledet_torch.models.sepc, simpledet_torch.ops.deform_conv\n"
+        "import torch\n"
+        "for cfg in ('dcn/faster_dcnv2_r50v1bc4_c5_512roi_1x', "
+        "'dcn/faster_dcn_r50v1b_fpn_1x', 'NASFPN/retina_r50v1b_nasfpn_640_"
+        "7@256_25epoch', 'NASFPN/retina_r50v1b_tdbu_640_3@384_25epoch', "
+        "'sepc/retina_r50v1b_fpn_sepc_1x', 'sepc/retina_r50v1b_fpn_1x', "
+        "'converge_sepc', 'converge_nasfpn'):\n"
+        "    for tr in (False, True):\n"
+        "        spec = read_config(f'config/{cfg}.py', tr)\n"
+        "        with torch.device('meta'):\n"
+        "            net = build_detector(spec, depth=18)\n"
+        "        assert type(net).__name__ in ('RetinaNet', "
+        "'TridentFasterRcnn', 'FasterRcnn'), cfg\n"
         "for variant in ('v1b', 'v1d'):\n"
         "    os.environ['SIMPLEDET_MICRO_BACKBONE'] = variant\n"
         "    net = build_detector(read_config('config/micro_test.py', True))\n"

@@ -314,10 +314,9 @@ def test_flagship_config_builds_and_maps_all_leaves():
     # Mask-Scoring R-CNN: a detector whose components the reader has no
     # roles for (Mask R-CNN itself is read and built since it was ported)
     ("config/ms_r50v1_fpn_1x.py", "MaskScoringFasterRcnn"),
-    # trident_c4_config with a backbone override the port does not have
-    # (TridentNet and the C4 Faster R-CNNs are read and built since they
-    # were ported)
-    ("config/dcn/faster_dcn_r50v1bc4_c5_512roi_1x.py", "DCNResNetC4S16"),
+    # a neck the port does not have (the DCN backbones, on the C4 and FPN
+    # detectors, are read and built since they were ported)
+    ("config/FPG/faster_r50v1b_fpg6_128_syncbn_1x.py", "FPGNeckP2P6"),
     # a config template that the port's copy does not hold
     ("config/cascade_r50v2_c5_red_1x.py", "cascade_c5_red_config"),
     # a detector whose components the reader has no roles for: it raises

@@ -1,5 +1,6 @@
 """The C4 / TridentNet configs in the port, on the CPU: the 43 configs that
-`trident_c4_config` (without a `backbone=` override) or a direct
+`trident_c4_config` (without a `backbone=` override: the DCN C4 configs
+are tests/test_torch_dcn_sepc_configs.py's) or a direct
 TridentFasterRcnn assembly give read and build (at depth 18) in both modes
 as the JAX package's reader builds them; the multi-scale resize against the
 JAX package's under one numpy seed; config/converge_trident.py through the
@@ -64,8 +65,9 @@ def jax_symbol(path, is_train):
 
 
 def test_the_list_is_the_43_configs():
-    """40 configs on the template (the six DCN ones pass `backbone=` and
-    stay blocked on DCN) and the three direct assemblies."""
+    """40 configs on the template and the three direct assemblies; the six
+    DCN C4 ones pass `backbone=` and are held in
+    tests/test_torch_dcn_sepc_configs.py."""
     assert len(set(CONFIGS)) == 43
     assert not [c for c in CONFIGS if "/dcn/" in c]
     assert "config/rpn_r50v2c4_1x.py" in CONFIGS
