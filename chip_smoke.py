@@ -121,7 +121,9 @@ Phases, each fatal on error:
   O. in a fresh temporary directory: config/retina_micro_test.py through
      the train CLI (8 iterations on the synthetic micro-COCO), then
      `simpledet_torch.detection_test` on its checkpoint (COCO eval);
-  then, beside phases A-C:
+  then, beside phases A-C (H and Z in child processes side by side with
+  phase C, V in one side by side with phase L; learning runs are bound by
+  the host, the card mostly idle):
   H. config/converge_cascade.py (depth-18 FPN, SyncBN, 3 stages) from
      scratch at batch 8 for 480 steps through the train CLI, the three
      kernels at its shapes, phase F's readings on one more step of the
@@ -170,7 +172,8 @@ Phases, each fatal on error:
      --scratch-rank mode, a 1-rank NCCL group, DDP), of
      mask_r50v1b_fpn_bn_scratch_2x.py (SyncBN): finite losses, the kernels
      launched, no norm outside the backbone;
-  V. in a fresh temporary directory: config/converge_mask.py's recipe with
+  V. (beside phase L) in a fresh temporary directory:
+     config/converge_mask.py's recipe with
      its TinyBackbone's base swapped for ResNet50V1dFPN (depth 18), written
      there, at half its lr (CONVERGE_MASK_LR: at its own, half the card
      runs diverged), 480 steps at batch 8 on 16 ellipse images through the
@@ -203,7 +206,8 @@ Phases, each fatal on error:
      writes, the checkpoint read back bit for bit), the test CLI on it, and
      `simpledet_torch.rpn_test` on config/rpn_r50v2c4_1x.py (the RPN
      detector on ResNet-50 v2 C4, seeded weights) over the 8 images;
-  Z. beside phases A-C: config/converge_trident.py (depth-18 trident, SyncBN,
+  Z. beside phases A-C (side by side with phases C and H):
+     config/converge_trident.py (depth-18 trident, SyncBN,
      4 classes, 7 x 7 rois) from scratch at batch 8 for 480 steps through
      the train CLI, the kernels at its shapes ([24, 8, 12, 1024]), the test
      CLI on the train set: the gates of the JAX package's
@@ -232,12 +236,32 @@ Phases, each fatal on error:
      on the SEPC config (4 iterations from a pretrain it writes, the
      checkpoint read back bit for bit, its `.params` holding `dconv`
      leaves), the test CLI on it;
-  AE. in a fresh temporary directory: config/converge_nasfpn.py and
-     config/converge_sepc.py from scratch at batch 8 for 640 steps each on
-     phase C's images, side by side (SEPC in a child process), then the
-     test CLI: the gates of
-     tests/test_converge_{nasfpn,sepc}.py (last-20 mean loss under 0.6 x
-     the first-20, AP >= 0.6, AP50 >= 0.9) beside the JAX records;
+  then, at full width, fp32 without TF32, seeded weights, FrozenBN folded:
+  AF. config/fcos_r50v1_fpn_1x.py: served as phase M serves (3 timed
+     requests of 2 images, detections against the plain-version path; the
+     logged score_thr=0 request at a decode threshold of 1e-12, so that K3
+     meets the 160 x 5000 real candidates, held against its plain version
+     flag for flag; the breakdown), then trained as phase N (the focal
+     term against its float64 definition, 2 + 5 steps, peak memory, no
+     kernel launched);
+  AG. config/RepPoints/reppoints_moment_r50v1_fpn_1x.py the same (the
+     breakdown splits the towers and the deformable refine stage), and
+     reppoints_moment_dcn_r101v1b_fpn_multiscale_2x.py served with its DCN
+     units' offset convs redrawn;
+  AH. config/FreeAnchor/free_anchor_r50v1_fpn_1x.py the same (K3 at 160 x
+     1000; the focal-style negative loss against its float64 evaluation);
+  AI. in a fresh temporary directory: phase 8's micro-COCO, the train CLI
+     on the RepPoints config (4 iterations from a pretrain it writes, its
+     `.params` holding the deformable kernels and the moment transfer), the
+     test CLI on it;
+  AE and AI's learning runs, in a fresh temporary directory on phase C's
+     images, side by side (converge_nasfpn here, the others in child
+     processes): config/converge_nasfpn.py, converge_sepc.py,
+     converge_reppoints.py and converge_freeanchor.py for 640 steps and
+     converge_fcos.py for 480 at batch 8 from scratch, then the test CLI:
+     the gates of tests/test_converge_{nasfpn,sepc,fcos,reppoints,
+     freeanchor}.py (last-20 mean loss under 0.6 x the first-20, FCOS 0.5
+     x; AP >= 0.6; AP50 >= 0.9, FCOS 0.95) beside the JAX records;
   10. print each phase's wall time as it ends, the `kernels` JSON line
      (launches per path: serving, training, serving_bf16, training_bf16,
      train_cli, eval_cli, serving_cascade, training_cascade,
@@ -255,12 +279,17 @@ Phases, each fatal on error:
      converge_trident, converge_trident_eval, serving_sepc, training_sepc,
      serving_nasfpn, training_nasfpn, serving_tdbu, serving_dcnv2_c4,
      training_dcnv2_c4, serving_dcn_fpn, training_dcn_fpn, train_cli_sepc,
-     eval_cli_sepc, converge_nasfpn, converge_sepc; times at converge_test's
+     eval_cli_sepc, converge_nasfpn, converge_sepc, serving_fcos,
+     training_fcos, serving_reppoints, training_reppoints,
+     serving_reppoints_dcn, serving_freeanchor, training_freeanchor,
+     train_cli_reppoints, eval_cli_reppoints, converge_fcos,
+     converge_reppoints, converge_freeanchor; times at converge_test's
      shapes, on the cascade's, the Mask R-CNN's, RetinaNet's (160 x 5000),
      converge_retina's, the RPN-only detector's, the v1b Mask R-CNN's,
      converge_mask_v1d's, the C4 paths', converge_trident's, the DCN
-     paths', the SEPC / NAS-FPN / TDBU requests' and the two recipes'
-     evals' inputs), the card's line, and {"ok": true, ...}.
+     paths', the SEPC / NAS-FPN / TDBU, FCOS, RepPoints and FreeAnchor
+     requests' and the five recipes' evals' inputs), the card's line, and
+     {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -893,6 +922,9 @@ def serve(dev, smi, config=CONFIG, path="serving", fold=False, stats=None,
     check_feature_dtype(det.model, requests[1][0], requests[1][1],
                         det.spec.pixel_norm)
 
+    # FCOS and RepPoints clip their boxes to [0, w] x [0, h], the others to
+    # [0, w - 1] x [0, h - 1], as the JAX package's models do
+    edge = 0 if type(det.model).__name__ in ("FCOS", "RepPoints") else 1
     for out in results + [live]:
         boxes, scores, classes, valid = out[:4]
         assert boxes.shape == (B, det.max_det, 4), boxes.shape
@@ -900,8 +932,8 @@ def serve(dev, smi, config=CONFIG, path="serving", fold=False, stats=None,
         assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
         v = valid
         assert ((classes[v] >= 1) & (classes[v] < 81)).all()
-        assert (boxes[v] >= 0).all() and (boxes[v][:, 2] <= W - 1).all()
-        assert (boxes[v][:, 3] <= H - 1).all()
+        assert (boxes[v] >= 0).all() and (boxes[v][:, 2] <= W - edge).all()
+        assert (boxes[v][:, 3] <= H - edge).all()
         if det.has_masks:
             m = out[4]
             assert m.shape == (B, det.max_det, 28, 28), m.shape
@@ -2105,11 +2137,27 @@ def serve_retina(dev, smi, config=CONFIG_RETINA, path="serving_retina"):
     return out["counts"], out["ms_per_image"], out["nms"], out["breakdown"]
 
 
+# the decode threshold of FCOS's and RepPoints' logged score_thr=0 request
+LIVE_THRESHOLD = 1e-12
+
+
+def dense_candidates(head):
+    """The candidates a dense head's decode gives an image: pre_nms_top_n
+    on each level (RetinaNet, FCOS, RepPoints: every level at 800 x 1333
+    has more (location, class) scores than that), FreeAnchor's one
+    top-k."""
+    top_n = head.p.proposal.pre_nms_top_n or 1000
+    if type(head).__name__ == "FreeAnchorRetinaNetHead":
+        return top_n
+    return len(head.strides) * top_n
+
+
 def serve_dense(dev, smi, config, path, prepare=None, inspect=None,
                 fold=True):
-    """Phase 4 on a RetinaNet config (no RoIAlign; one NMS launch a
-    request, the per-class NMS over the 5 levels' top candidates, so 160
-    problems of 5000 boxes at batch 2; at score_thr=0 every box is live),
+    """Phase 4 on a RetinaNet, FCOS or RepPoints config (no RoIAlign; one
+    NMS launch a request, the per-class NMS over the 5 levels' top
+    candidates, so 160 problems of 5000 boxes at batch 2, FreeAnchor's
+    160 x 1000; at score_thr=0 every box is live),
     `prepare` first and, with `fold`, FrozenBN folded from one request;
     detections against the plain-NMS path within 1e-4. Then K3 on a
     score_thr=0 request's own call against the plain version, chunked, the
@@ -2121,23 +2169,131 @@ def serve_dense(dev, smi, config, path, prepare=None, inspect=None,
                                 prepare=prepare)
     images, im_info = synthetic_batch(B, H, W, 1)
     images = images.to(dev)
-    with recording() as calls:
-        det.detect(images, im_info, score_thr=0.0)
-    torch.cuda.synchronize()
+    head = det.model.head
+    # FCOS's and RepPoints' decode keeps only class probabilities above
+    # their threshold, which no seeded score passes (the 0.01 prior): for
+    # this request the threshold is LIVE_THRESHOLD, so that the per-class
+    # NMS meets the decode's real candidates (a threshold of 0 reads as
+    # the default 0.05, `or 0.05`, as in the JAX package)
+    key = {"FCOSHead": "pre_nms_thresh", "RepPointsHead":
+           "min_det_score"}.get(type(head).__name__)
+    saved = key and getattr(head.p.proposal, key)
+    if key:
+        setattr(head.p.proposal, key, LIVE_THRESHOLD)
+    try:
+        with recording() as calls:
+            det.detect(images, im_info, score_thr=0.0)
+            with torch.no_grad():
+                data, info = det._inputs(images, im_info)
+                decoded = int(det.model(data.float(), info, mode="test")[
+                    "det_valid"].sum())
+        torch.cuda.synchronize()
+    finally:
+        if key:
+            setattr(head.p.proposal, key, saved)
     (boxes, valid, _), = calls["nms"]
-    p_rpn = det.model.head.p
-    want = (B * (p_rpn.num_class - 1),
-            len(p_rpn.anchor_generate.stride) * p_rpn.proposal.pre_nms_top_n)
-    if tuple(valid.shape) != want or not bool(valid.all()):
+    want = (B * head.num_fg_class, dense_candidates(head))
+    if tuple(valid.shape) != want or not bool(valid.all()) or (
+            key and decoded != want[1] * B):
         raise AssertionError(f"{path}: the score_thr=0 request's per-class "
                              f"NMS is {tuple(valid.shape)}, "
-                             f"{int(valid.sum())} live, want {want} live")
+                             f"{int(valid.sum())} live, {decoded} decoded "
+                             f"candidates, want {want} live")
+    log(f"{path}: the score_thr=0 request decodes {decoded} valid "
+        f"candidates" + (f" ({key} {LIVE_THRESHOLD})" if key else ""))
     out = dict(counts=counts, ms_per_image=ms_img,
                nms=nms_reading(calls, path),
                breakdown=request_breakdown(det, path, images, im_info))
     if inspect is not None:
         out.update(inspect(det, (images, im_info)))
     return out
+
+
+def focal64(logits, label, alpha, gamma):
+    """The sigmoid focal loss's definition summed, in float64: alpha
+    (1-p)^gamma -log p on the label's column, (1-alpha) p^gamma -log(1-p)
+    on the others, rows labelled below 0 ignored."""
+    z = logits.double()
+    label = label.long()
+    target = label[..., None] == torch.arange(1, z.shape[-1] + 1,
+                                              device=z.device)
+    prob = torch.sigmoid(z)
+    pos = -alpha * (1 - prob) ** gamma * torch.log(prob)
+    neg = -(1 - alpha) * prob ** gamma * torch.log1p(-prob)
+    per = torch.where(target, pos, neg).sum(-1)
+    return torch.where(label >= 0, per, 0.0).sum()
+
+
+def dense_definition(model, batch, pixel_norm, dev, path):
+    """One train forward without grad of FCOS, RepPoints or FreeAnchor: its
+    focal term against the definition in float64 within 1e-5 (FCOS's over
+    its positives + 1, RepPoints' over its foreground count; FreeAnchor's
+    focal-style negative loss against the same loss evaluated in float64
+    from the float32 forward's outputs); the head's loss, targets included,
+    timed (CUDA events). RetinaNet: `focal_definition`."""
+    from simpledet_torch.models import freeanchor
+    from simpledet_torch.ops.image import device_normalize
+
+    head = model.head
+    kind = type(head).__name__
+    if kind == "RetinaNetHead":
+        return focal_definition(model, batch, pixel_norm, dev, path)
+    images, im_info, gt = batch
+    gt = gt.to(dev)
+    mt = getattr(model, "moment_transfer", None)
+
+    def loss():
+        if kind == "RepPointsHead":
+            return head.loss(outs, gt, info, mt)
+        return head.loss(outs, gt, info)
+
+    with torch.no_grad():
+        info = im_info.to(dev)
+        data = device_normalize(images, info, *pixel_norm).float()
+        outs = model.head_module(model.pyramid(data))
+        losses, aux = loss()
+        p = head.p
+        if kind == "FreeAnchorRetinaNetHead":
+            logits, deltas = head.flatten_outputs(outs)
+            anchors = torch.cat(head.level_anchors(outs))
+            top_n = p.anchor_assign.pre_anchor_top_n or 50
+            key, rows = "freeanchor_negative_loss", anchors.shape[0]
+            want = float(freeanchor.negative_loss(
+                anchors.double(), gt.double(), torch.sigmoid(logits.double()),
+                deltas.double(), info.double(),
+                alpha=p.focal_loss.alpha or 0.5,
+                gamma=p.focal_loss.gamma or 2.0,
+                bbox_thr=p.anchor_assign.bbox_thr or 0.6,
+                mean=p.head.mean, std=p.head.std).sum()
+                / (aux["num_gt"].double() * top_n))
+            count = float(aux["num_gt"])
+        else:
+            if kind == "FCOSHead":
+                logits, label = head.flatten(outs)[1], aux["fcos_cls_label"]
+                ls = p.loss_setting
+                alpha, gamma = ls.focal_loss_alpha, ls.focal_loss_gamma
+                count = float((label >= 1).sum())
+                norm, key = count + 1.0, "fcos_cls_loss"
+            else:
+                logits, label = head.flatten(outs)[2], aux["reppoints_label"]
+                alpha, gamma = p.focal_loss.alpha, p.focal_loss.gamma
+                count = float((label >= 1).sum())
+                norm, key = max(count, 1.0), "reppoints_cls_loss"
+            rows = label.shape[1]
+            want = float(focal64(logits, label, alpha or 0.25, gamma or 2.0)
+                         / norm)
+        got = float(losses[key])
+        if abs(got - want) > 1e-5 * abs(want):
+            raise AssertionError(f"{path}: {key} {got} is not its float64 "
+                                 f"definition {want}")
+        ms_loss = cuda_ms(loss, 3, 1)
+    log(f"{path}: {key} {got:.6f} equals its float64 definition "
+        f"({want:.6f}) within 1e-5, over {rows} rows x {logits.shape[-1]} "
+        f"classes an image, {count:.0f} "
+        + ("gt boxes" if kind == "FreeAnchorRetinaNetHead" else "positives")
+        + f"; the head's loss with its targets {ms_loss:.3f} ms a step "
+        "(CUDA events)")
+    return dict(rows_per_image=rows, positives=count, loss_ms=ms_loss)
 
 
 def focal_definition(model, batch, pixel_norm, dev, path):
@@ -2156,15 +2312,8 @@ def focal_definition(model, batch, pixel_norm, dev, path):
         losses, aux = model.head.loss(outs, gt.to(dev), info)
         logits, _ = model.head.flatten_outputs(outs)
     p_focal = model.head.p.focal_loss
-    z = logits.double()
-    label = aux["rpn_label"].long()
-    target = label[..., None] == torch.arange(1, z.shape[-1] + 1,
-                                              device=dev)
-    prob = torch.sigmoid(z)
-    pos = -p_focal.alpha * (1 - prob) ** p_focal.gamma * torch.log(prob)
-    neg = -(1 - p_focal.alpha) * prob ** p_focal.gamma * torch.log1p(-prob)
-    per = torch.where(target, pos, neg).sum(-1)
-    want = float(torch.where(label >= 0, per, 0.0).sum()
+    label = aux["rpn_label"]
+    want = float(focal64(logits, label, p_focal.alpha, p_focal.gamma)
                  / aux["rpn_fg_count"].double())
     got = float(losses["retina_cls_loss"])
     if abs(got - want) > 1e-5 * want:
@@ -2174,7 +2323,7 @@ def focal_definition(model, batch, pixel_norm, dev, path):
     gt_d = gt.to(dev)
     ms_targets = cuda_ms(lambda: model.head.targets(outs, gt_d, info), 3, 1)
     log(f"{path}: retina_cls_loss {got:.6f} equals the float64 focal sum "
-        f"over {n_anchor} anchors x {z.shape[-1]} classes an image / fg "
+        f"over {n_anchor} anchors x {logits.shape[-1]} classes an image / fg "
         f"count {float(aux['rpn_fg_count']):.0f} ({want:.6f}) within 1e-5; "
         f"dense targets {ms_targets:.3f} ms a step (CUDA events)")
     return dict(anchors_per_image=n_anchor,
@@ -2208,7 +2357,7 @@ def train_dense(dev, smi, config, path, prepare=None, inspect=None,
     model = trainer.model
     extra = {}
     if hasattr(model, "head_module"):
-        extra.update(focal_definition(model, batch, trainer.pixel_norm, dev,
+        extra.update(dense_definition(model, batch, trainer.pixel_norm, dev,
                                       path))
     if inspect is not None:
         extra.update(inspect(trainer, batch))
@@ -2343,8 +2492,10 @@ def converge_dense(dev, smi, config, path, epochs, record, ap50=0.8,
     first, last = float(total[:20].mean()), float(total[-20:].mean())
     log(f"{path}: {len(total)} steps at batch 8 in {seconds:.1f} s "
         f"(incl. start-up, loader and logging) on {smi}; mean total loss "
-        f"first 20 {first:.4f}, last 20 {last:.6f} (the JAX record: "
-        f"{record['first20']:.4f}, {record['last20']:.5f})")
+        f"first 20 {first:.4f}, last 20 {last:.6f}" + (
+            f" (the JAX record: {record['first20']:.4f}, "
+            f"{record['last20']:.5f})" if record["first20"] else
+            " (the JAX record keeps no losses)"))
     if len(total) != 4 * epochs or not np.isfinite(total).all():
         raise AssertionError(f"{path}: {len(total)} steps, finite "
                              f"{bool(np.isfinite(total).all())}")
@@ -2359,8 +2510,9 @@ def converge_dense(dev, smi, config, path, epochs, record, ap50=0.8,
         f"{stats['batch']}; AP {summary['AP']:.3f}, AP50 "
         f"{summary['AP50']:.3f}, AP75 {summary['AP75']:.3f} (the JAX "
         f"package's record, {record['chip']}, {4 * epochs} steps at batch "
-        f"8: AP {record['AP']:.3f}, AP50 {record['AP50']:.3f}, AP75 "
-        f"{record['AP75']:.3f})")
+        f"8: AP {record['AP']:.3f}, AP50 {record['AP50']:.3f}"
+        + (f", AP75 {record['AP75']:.3f})" if record["AP75"] is not None
+           else ")"))
     gates = {f"last 20 < first 20 * {ratio}": last < ratio * first,
              "AP >= 0.6": summary["AP"] >= 0.6,
              f"AP50 >= {ap50}": summary["AP50"] >= ap50}
@@ -2952,8 +3104,10 @@ def converge_mask(dev, smi, bwd_sets, config=CONFIG_CONVERGE_MASK,
 
 
 def syncbn_phases(dev, smi, bwd_sets):
-    """Phases A, B, C, H, L, P, Q and Z in a fresh temporary directory,
-    removed afterwards (Q's recall reads phase C's checkpoint there)."""
+    """Phases A, B, C, H, L, P, Q, V and Z in a fresh temporary directory,
+    removed afterwards (Q's recall reads phase C's checkpoint there); C, H
+    and Z side by side, H and Z in child processes; L and V side by side,
+    V in a child process (in a directory of its own)."""
     import tempfile
 
     cwd = os.getcwd()
@@ -2965,25 +3119,24 @@ def syncbn_phases(dev, smi, bwd_sets):
             out = {"training_syncbn": train_syncbn(dev, smi)}
         with phase("B train and test CLIs under torchrun"):
             out["cli"] = cli_syncbn(dev, smi)
-        with phase("C converge"):
-            out["converge"] = converge(dev, smi)
-        with phase("H converge_cascade"):
-            out["converge_cascade"] = converge(
-                dev, smi, CONFIG_CONVERGE_CASCADE, "converge_cascade",
-                CONVERGE_CASCADE_EPOCHS, JAX_CONVERGE_CASCADE)
-        with phase("L converge_mask"):
+        with phase("C converge, H converge_cascade and Z converge_trident, "
+                   "side by side"):
+            out["converge"], children = side_by_side(
+                lambda: converge(dev, smi),
+                ("converge_cascade", "converge_trident"))
+            out.update(children)
+        with phase("L converge_mask and V converge_mask_v1d, side by side"):
             os.environ["CONVERGE_DATA_ROOT"] = os.path.join(
                 tmp, "converge_ellipse")
-            out["converge_mask"] = converge_mask(dev, smi, bwd_sets)
+            out["converge_mask"], children = side_by_side(
+                lambda: converge_mask(dev, smi, bwd_sets),
+                ("converge_mask_v1d",))
+            out.update(children)
         os.environ["CONVERGE_DATA_ROOT"] = os.path.join(tmp, "converge")
         with phase("P converge_retina"):
             out["converge_retina"] = converge_retina(dev, smi)
         with phase("Q rpn_only"):
             out["rpn_only"] = rpn_only_phase(dev, smi)
-        with phase("Z converge_trident"):
-            out["converge_trident"] = converge(
-                dev, smi, CONFIG_CONVERGE_TRIDENT, "converge_trident",
-                CONVERGE_TRIDENT_EPOCHS, JAX_CONVERGE_TRIDENT)
     finally:
         os.chdir(cwd)
         os.environ.clear()
@@ -3241,7 +3394,7 @@ def converge_v1d_phase(dev, smi):
 
 
 def backbone_phases(dev, smi):
-    """Phases R, S, T, U and V."""
+    """Phases R, S, T and U (V: `syncbn_phases`)."""
     out = {}
     with phase("R mask_v1b"):
         out["mask_v1b"] = mask_v1b_phase(dev, smi)
@@ -3251,8 +3404,6 @@ def backbone_phases(dev, smi):
         out["r152"] = r152_phase(dev, smi)
     with phase("U mask scratch steps"):
         out["scratch"] = scratch_phase(dev, smi)
-    with phase("V converge_mask_v1d"):
-        out["converge_v1d"] = converge_v1d_phase(dev, smi)
     return out
 
 
@@ -3416,6 +3567,18 @@ def c4_phases(dev, smi):
 
 # ------------------------------------------ a learning run in a child process
 
+def converge_cascade(dev, smi):
+    """config/converge_cascade.py's learning run of phase H (`converge`)."""
+    return converge(dev, smi, CONFIG_CONVERGE_CASCADE, "converge_cascade",
+                    CONVERGE_CASCADE_EPOCHS, JAX_CONVERGE_CASCADE)
+
+
+def converge_trident(dev, smi):
+    """config/converge_trident.py's learning run of phase Z (`converge`)."""
+    return converge(dev, smi, CONFIG_CONVERGE_TRIDENT, "converge_trident",
+                    CONVERGE_TRIDENT_EPOCHS, JAX_CONVERGE_TRIDENT)
+
+
 def converge_sepc(dev, smi):
     """config/converge_sepc.py's learning run of phase AE
     (`converge_dense`)."""
@@ -3424,28 +3587,30 @@ def converge_sepc(dev, smi):
                           ap50=0.9, ratio=0.6)
 
 
-def child_main(out):
-    """`--converge-sepc-child out`: `converge_sepc` on card 0 in the working
-    directory and environment its parent set up, its result into the json
-    file `out`; the kernels' builds are the parent's (in `build/`)."""
+def child_main(name, out):
+    """`--converge-child name out`: the learning run `name` (a key of
+    CHILD_RECIPES) on card 0 in the working directory and environment its
+    parent set up, its result into the json file `out`; the kernels' builds
+    are the parent's (in `build/`)."""
     from simpledet_torch.infer import card_name_and_power, full_fp32
 
     full_fp32()
-    result = converge_sepc(torch.device("cuda", 0), card_name_and_power())
+    result = CHILD_RECIPES[name](torch.device("cuda", 0),
+                                 card_name_and_power())
     with open(out, "w") as f:
         json.dump(result, f)
 
 
-def start_child():
-    """This script's `--converge-sepc-child` in a process of its own, in the
+def start_child(name):
+    """This script's `--converge-child name` in a process of its own, in the
     working directory and environment of now: (the process, its result
     file). Learning runs are bound by the host (a step of batch 8 at 128 x
-    192 leaves the card mostly idle), so two of them side by side take
-    little more than one."""
-    out = os.path.abspath("converge_sepc.child.json")
+    192 leaves the card mostly idle), so two or three of them side by side
+    take little more than one."""
+    out = os.path.abspath(f"{name}.child.json")
     proc = subprocess.Popen([sys.executable, os.path.join(REPO,
                                                           "chip_smoke.py"),
-                             "--converge-sepc-child", out])
+                             "--converge-child", name, out])
     return proc, out
 
 
@@ -3469,6 +3634,29 @@ def join_child(child, timeout=900):
         raise AssertionError(f"child phase {out} exited {rc}")
     with open(out) as f:
         return json.load(f)
+
+
+def side_by_side(parent, names):
+    """parent() in this process while each learning run of `names` (keys of
+    CHILD_RECIPES) runs in a child process, in the working directory and
+    environment of now: (parent()'s result, {name: the child's result}).
+    Raises, once every child has ended, if any failed."""
+    children = {name: start_child(name) for name in names}
+    try:
+        result = parent()
+    except BaseException:
+        for child in children.values():
+            stop_child(child)
+        raise
+    out, errors = {}, []
+    for name, child in children.items():
+        try:
+            out[name] = tuple(join_child(child))
+        except AssertionError as e:
+            errors.append(str(e))
+    if errors:
+        raise AssertionError("; ".join(errors))
+    return result, out
 
 
 # ------------------------------------------- phases AA, AB, AC, AD and AE
@@ -3702,54 +3890,9 @@ def family_cli_phase(dev, smi):
     return dict(train_cli_sepc=train_counts, eval_cli_sepc=eval_counts), stats
 
 
-def family_converge_phase(dev, smi):
-    """Phase AE, in a fresh temporary directory removed afterwards, on phase
-    C's 16 micro images and their flips: config/converge_nasfpn.py and
-    config/converge_sepc.py (depth-18 FPN, SyncBN, adam) from scratch at
-    batch 8 for 640 steps each through the train CLI, side by side (SEPC in
-    a child process), then the test CLI on the train set: the gates of
-    tests/test_converge_nasfpn.py and tests/test_converge_sepc.py (last-20
-    mean loss under 0.6 x the first-20, AP >= 0.6, AP50 >= 0.9) beside the
-    JAX records."""
-    import tempfile
-
-    from simpledet_torch.data.synthetic import make_micro_dataset
-
-    cwd, saved = os.getcwd(), dict(os.environ)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_converge_")
-    out = {}
-    try:
-        os.makedirs(os.path.join(tmp, "config"))
-        for cfg in (CONFIG_CONVERGE_NASFPN, CONFIG_CONVERGE_SEPC):
-            shutil.copyfile(os.path.join(REPO, cfg), os.path.join(tmp, cfg))
-        make_micro_dataset(os.path.join(tmp, "converge"), n_images=16,
-                           set_names=("converge_train",))
-        os.environ.update(CONVERGE_DATA_ROOT=os.path.join(tmp, "converge"))
-        for prefix in ("CONVERGE_NASFPN", "CONVERGE_SEPC"):
-            os.environ[f"{prefix}_BATCH"] = "8"
-            os.environ[f"{prefix}_EPOCHS"] = str(CONVERGE_FAMILY_EPOCHS)
-        os.chdir(tmp)
-        with phase("AE converge_nasfpn and converge_sepc, side by side"):
-            child = start_child()
-            try:
-                out["converge_nasfpn"] = converge_dense(
-                    dev, smi, CONFIG_CONVERGE_NASFPN, "converge_nasfpn",
-                    CONVERGE_FAMILY_EPOCHS, JAX_CONVERGE_NASFPN, ap50=0.9,
-                    ratio=0.6)
-            except BaseException:
-                stop_child(child)
-                raise
-            out["converge_sepc"] = tuple(join_child(child))
-    finally:
-        os.chdir(cwd)
-        os.environ.clear()
-        os.environ.update(saved)
-        shutil.rmtree(tmp, ignore_errors=True)
-    return out
-
-
 def family_phases(dev, smi):
-    """Phases AA-AE: the deformable convolution, NAS-FPN / TDBU and SEPC."""
+    """Phases AA-AD: the deformable convolution, NAS-FPN / TDBU and SEPC
+    (AE's learning runs: `learning_phase`)."""
     out = {}
     with phase("AA sepc"):
         prepare = perturb_offsets()
@@ -3780,15 +3923,188 @@ def family_phases(dev, smi):
                                   lr_scale=FAMILY_LR_SCALE)
     with phase("AD sepc CLIs"):
         out["cli"] = family_cli_phase(dev, smi)
-    out["converge"] = family_converge_phase(dev, smi)
+    return out
+
+
+# ------------------------------------------- phases AF, AG, AH and AI
+
+CONFIG_FCOS = os.path.join(REPO, "config", "fcos_r50v1_fpn_1x.py")
+CONFIG_REPPOINTS = os.path.join(REPO, "config", "RepPoints",
+                                "reppoints_moment_r50v1_fpn_1x.py")
+CONFIG_REPPOINTS_DCN = os.path.join(
+    REPO, "config", "RepPoints",
+    "reppoints_moment_dcn_r101v1b_fpn_multiscale_2x.py")
+CONFIG_FREEANCHOR = os.path.join(REPO, "config", "FreeAnchor",
+                                 "free_anchor_r50v1_fpn_1x.py")
+# the JAX package's records of its recipes at batch 8 on one TPU chip:
+# converge_fcos's in tests/test_converge_fcos.py's docstring (480 steps, no
+# losses kept), the others' in experiments/chip/converge_{reppoints,
+# freeanchor}/ (640 steps: log.txt's summary, losses.jsonl's first and last
+# 20 steps)
+JAX_CONVERGE_FCOS = dict(AP=0.857, AP50=1.000, AP75=None, first20=None,
+                         last20=None, chip="one TPU chip")
+JAX_CONVERGE_REPPOINTS = dict(AP=0.934, AP50=1.000, AP75=1.000,
+                              first20=3.6457, last20=0.05342,
+                              chip="one TPU chip")
+JAX_CONVERGE_FREEANCHOR = dict(AP=0.958, AP50=1.000, AP75=1.000,
+                               first20=3.8289, last20=0.06373,
+                               chip="one TPU chip")
+# name -> (config, env prefix, epochs of 4 steps at batch 8, JAX record,
+# AP50 gate, loss ratio gate): the gates of the JAX package's
+# tests/test_converge_{fcos,reppoints,freeanchor}.py
+DENSE_RECIPES = {
+    "converge_fcos": ("config/converge_fcos.py", "CONVERGE_FCOS", 120,
+                      JAX_CONVERGE_FCOS, 0.95, 0.5),
+    "converge_reppoints": ("config/converge_reppoints.py",
+                           "CONVERGE_REPPOINTS", 160, JAX_CONVERGE_REPPOINTS,
+                           0.9, 0.6),
+    "converge_freeanchor": ("config/converge_freeanchor.py",
+                            "CONVERGE_FREEANCHOR", 160,
+                            JAX_CONVERGE_FREEANCHOR, 0.9, 0.6),
+}
+
+
+def dense_recipe(name):
+    """A learning run of DENSE_RECIPES through `converge_dense`."""
+    config, _, epochs, record, ap50, ratio = DENSE_RECIPES[name]
+
+    def run(dev, smi):
+        return converge_dense(dev, smi, config, name, epochs, record,
+                              ap50=ap50, ratio=ratio)
+    return run
+
+
+# the learning runs a child process runs (`--converge-child name out`)
+CHILD_RECIPES = {"converge_sepc": converge_sepc,
+                 "converge_cascade": converge_cascade,
+                 "converge_trident": converge_trident,
+                 "converge_mask_v1d": converge_v1d_phase,
+                 **{name: dense_recipe(name) for name in DENSE_RECIPES}}
+
+
+def dense_cli_phase(dev, smi):
+    """Phase AI, CLIs, in a fresh temporary directory removed afterwards:
+    phase 8's micro-COCO; detection_train on
+    config/RepPoints/reppoints_moment_r50v1_fpn_1x.py for CLI_TRAIN_ITERS
+    iterations from a pretrain it writes (the checkpoint read back bit for
+    bit, its `.params` holding the deformable kernels and the moment
+    transfer); detection_test on it (K3 once an eval batch)."""
+    import tempfile
+
+    from simpledet_torch.core import checkpoint as ckpt
+
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reppoints_cli_")
+    os.chdir(tmp)
+    try:
+        write_micro_coco()
+        train_counts, checkpoint = train_cli(dev, smi, CONFIG_REPPOINTS,
+                                             "train_cli_reppoints",
+                                             required=())
+        leaves = {"/".join(k) for k in ckpt.flatten(
+            ckpt.read_params(checkpoint))}
+        want = {"head_module/cls_conv_kernel",
+                "head_module/pts_refine_conv_kernel", "moment_transfer"}
+        if not want <= leaves:
+            raise AssertionError(f"{checkpoint} lacks {want - leaves}")
+        log(f"train_cli_reppoints: {checkpoint} holds {sorted(want)}")
+        eval_counts, stats = eval_cli(dev, smi, checkpoint, CONFIG_REPPOINTS,
+                                      "eval_cli_reppoints",
+                                      required=("nms",))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(train_cli_reppoints=train_counts,
+                eval_cli_reppoints=eval_counts), stats
+
+
+def learning_phase(dev, smi):
+    """The learning runs of phases AE and AI side by side, in a fresh
+    temporary directory removed afterwards, on phase C's 16 micro images
+    and their flips: config/converge_nasfpn.py in this process,
+    config/converge_sepc.py, converge_fcos, converge_reppoints and
+    converge_freeanchor each in a child process (depth-18 FPN, SyncBN,
+    64-wide heads; 640 steps each but converge_fcos's 480), from scratch at
+    batch 8 through the train CLI, then the test CLI on the train set: the
+    gates of the JAX package's tests/test_converge_{nasfpn,sepc,fcos,
+    reppoints,freeanchor}.py beside its records. Returns {name: (launch
+    counts, the K3 reading, the result)}."""
+    import tempfile
+
+    from simpledet_torch.data.synthetic import make_micro_dataset
+
+    recipes = {"converge_nasfpn": (CONFIG_CONVERGE_NASFPN, "CONVERGE_NASFPN",
+                                   CONVERGE_FAMILY_EPOCHS),
+               "converge_sepc": (CONFIG_CONVERGE_SEPC, "CONVERGE_SEPC",
+                                 CONVERGE_FAMILY_EPOCHS),
+               **{k: v[:3] for k, v in DENSE_RECIPES.items()}}
+    cwd, saved = os.getcwd(), dict(os.environ)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_learning_")
+    out = {}
+    try:
+        os.makedirs(os.path.join(tmp, "config"))
+        for config, prefix, epochs in recipes.values():
+            shutil.copyfile(os.path.join(REPO, config),
+                            os.path.join(tmp, config))
+            os.environ[f"{prefix}_BATCH"] = "8"
+            os.environ[f"{prefix}_EPOCHS"] = str(epochs)
+        make_micro_dataset(os.path.join(tmp, "converge"), n_images=16,
+                           set_names=("converge_train",))
+        os.environ.update(CONVERGE_DATA_ROOT=os.path.join(tmp, "converge"))
+        os.chdir(tmp)
+        with phase("AE and AI learning runs, side by side: "
+                   + ", ".join(recipes)):
+            out["converge_nasfpn"], children = side_by_side(
+                lambda: converge_dense(
+                    dev, smi, CONFIG_CONVERGE_NASFPN, "converge_nasfpn",
+                    CONVERGE_FAMILY_EPOCHS, JAX_CONVERGE_NASFPN, ap50=0.9,
+                    ratio=0.6),
+                [name for name in recipes if name != "converge_nasfpn"])
+            out.update(children)
+    finally:
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def dense_phases(dev, smi):
+    """Phases AF-AI: FCOS, RepPoints (and its DCN R101 served) and
+    FreeAnchor at full width (serving 3 requests of 2 images, 2 + 5
+    training steps, the focal terms against their float64 definitions, K3
+    on each model's own per-class NMS), then the RepPoints CLIs (AI's
+    learning runs: `learning_phase`)."""
+    out = {}
+    with phase("AF fcos"):
+        out["fcos"] = dict(
+            serving=serve_dense(dev, smi, CONFIG_FCOS, "serving_fcos"),
+            training=train_dense(dev, smi, CONFIG_FCOS, "training_fcos"))
+    with phase("AG reppoints"):
+        out["reppoints"] = dict(
+            serving=serve_dense(dev, smi, CONFIG_REPPOINTS,
+                                "serving_reppoints"),
+            training=train_dense(dev, smi, CONFIG_REPPOINTS,
+                                 "training_reppoints"))
+        out["reppoints_dcn"] = dict(serving=serve_dense(
+            dev, smi, CONFIG_REPPOINTS_DCN, "serving_reppoints_dcn",
+            perturb_offsets(), deform_reading("reppoints_dcn")))
+    with phase("AH freeanchor"):
+        out["freeanchor"] = dict(
+            serving=serve_dense(dev, smi, CONFIG_FREEANCHOR,
+                                "serving_freeanchor"),
+            training=train_dense(dev, smi, CONFIG_FREEANCHOR,
+                                 "training_freeanchor"))
+    with phase("AI reppoints CLIs"):
+        out["cli"] = dense_cli_phase(dev, smi)
     return out
 
 
 def main():
     if sys.argv[1:2] == ["--train-cli-rank"]:
         return train_cli_rank(sys.argv[2])
-    if sys.argv[1:2] == ["--converge-sepc-child"]:
-        return child_main(sys.argv[2])
+    if sys.argv[1:2] == ["--converge-child"]:
+        return child_main(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--scratch-rank"]:
         return scratch_rank(sys.argv[2])
     smi = environment()
@@ -3899,7 +4215,7 @@ def main():
             bb["scratch"].items()):
         paths[path] = counts
     (paths["converge_mask_v1d"], paths["converge_mask_v1d_eval"],
-     at_converge_v1d, converge_v1d_result) = bb["converge_v1d"]
+     at_converge_v1d, converge_v1d_result) = sync["converge_mask_v1d"]
     log(f"serving_mask_v1b: {ms_img_mask_v1b:.3f} ms/image, idle "
         f"{mask_v1b_breakdown['device_idle_share']:.1%} of a traced request;"
         f" training_mask_v1b {ms_step_mask_v1b:.3f} ms/step, idle "
@@ -3952,6 +4268,11 @@ def main():
         return out
 
     fam = family_phases(dev, smi)
+    dense = dense_phases(dev, smi)
+    learned = learning_phase(dev, smi)
+    fam["converge"] = {k: learned[k] for k in ("converge_nasfpn",
+                                               "converge_sepc")}
+    dense["converge"] = {k: learned[k] for k in DENSE_RECIPES}
     for key in ("sepc", "nasfpn"):
         counts, ms_step_f, split_f, extra_f = fam[key]["training"]
         paths[f"training_{key}"] = counts
@@ -3997,6 +4318,41 @@ def main():
                 out[key] = at
         return out
 
+    dense_summary = {}
+    for key in ("fcos", "reppoints", "reppoints_dcn", "freeanchor"):
+        served = dense[key]["serving"]
+        paths[f"serving_{key}"] = served["counts"]
+        dense_summary[key] = {f"serving_{k}": v for k, v in served.items()
+                              if k not in ("counts", "nms")}
+        if "training" in dense[key]:
+            counts, ms_step_d, split_d, extra_d = dense[key]["training"]
+            paths[f"training_{key}"] = counts
+            dense_summary[key].update(training_ms_per_step=ms_step_d,
+                                      training_split_ms=split_d,
+                                      **{f"training_{k}": v
+                                         for k, v in extra_d.items()})
+    dense_cli_counts, reppoints_eval_stats = dense["cli"]
+    paths.update(dense_cli_counts)
+    for key, (counts, _, _) in dense["converge"].items():
+        paths[key] = counts
+    log("FCOS, RepPoints and FreeAnchor against the flagship of this call "
+        f"(serving {ms_img:.3f} ms/image, training {ms_step:.3f} ms/step at "
+        "800 x 1333, batch 2): " + "; ".join(
+            f"{k} serving {v['serving_ms_per_image']:.3f} ms/image"
+            + (f", training {v['training_ms_per_step']:.3f} ms/step, peak "
+               f"{v['training_peak_gib']:.2f} GiB"
+               if "training_ms_per_step" in v else "")
+            for k, v in dense_summary.items()) + f"; on {smi}")
+
+    def at_dense(kernel):
+        """K3's readings on the dense heads' own per-class NMS calls."""
+        out = {f"{key}_serving_score0": dense[key]["serving"]["nms"]
+               for key in ("fcos", "reppoints", "reppoints_dcn",
+                           "freeanchor")}
+        for key, (_, at, _) in dense["converge"].items():
+            out[key] = at
+        return out if kernel == "nms" else {}
+
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -4021,7 +4377,7 @@ def main():
              mask_v1b_serving=at_mask_v1b_serving["nms"],
              mask_v1b_training=mask_v1b["nms"],
              converge_mask_v1d=at_converge_v1d["nms"], **at_c4("nms"),
-             **at_family("nms")),
+             **at_family("nms"), **at_dense("nms")),
         dict(name="roi_align_fwd", route="cuda", source=source,
              replaces="simpledet_tpu/kernels/roi_align_pallas.py:267",
              **launches("roi_align_fwd"),
@@ -4143,6 +4499,13 @@ def main():
                     "converge_nasfpn_jax_record": JAX_CONVERGE_NASFPN,
                     "converge_sepc": fam["converge"]["converge_sepc"][2],
                     "converge_sepc_jax_record": JAX_CONVERGE_SEPC,
+                    "dense": dense_summary,
+                    "eval_cli_reppoints_img_per_s":
+                        reppoints_eval_stats["img_per_s"],
+                    **{key: dense["converge"][key][2] for key in
+                       DENSE_RECIPES},
+                    **{f"{key}_jax_record": DENSE_RECIPES[key][3]
+                       for key in DENSE_RECIPES},
                     "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,9 +9,11 @@ config, RoIAlign and box head + refine of each of its three stages, then the
 score averaging over the three heads; for a Mask R-CNN config, then the mask
 RoIAlign on the kept boxes and the mask head with its sigmoid; pasting the
 masks into the image is eval work, outside the request; for a RetinaNet
-config: normalise, backbone, neck, subnets, decode and top-k, per-class
-NMS; for an RPN-only config the stages up to the proposals; for a C4 /
-TridentNet config: normalise, trunk (stem and stages 1-2), trident stage
+config (FCOS and FreeAnchor too): normalise, backbone, neck, subnets,
+decode and top-k, per-class NMS (a RepPoints config splits its subnets into
+the towers with the init points and the deformable refine stage, profiler
+range `reppoints_refine`); for an RPN-only config the stages up to the
+proposals; for a C4 / TridentNet config: normalise, trunk (stem and stages 1-2), trident stage
 (stage 3 on every branch), RPN head, proposals, RoIAlign, C5 head, then the
 decode, the branches' merge and the per-class NMS; a DCN C4 config's
 backbone is one stage; a SEPC RetinaNet's neck splits into its FPN and its
@@ -19,7 +21,8 @@ SEPC part), timing each stage with CUDA events over `count` requests, then
 traces `count` whole requests with torch.profiler for the device's busy
 share, the top kernels by device time and the device time of the profiler
 ranges the request entered (`PROFILER_RANGES`: the deformable convs'
-`deform_conv`, the DCN units' `dcn_unit`, SEPC's `sepc`, the mask branch's).
+`deform_conv`, the DCN units' `dcn_unit`, SEPC's `sepc`, RepPoints'
+`reppoints_refine`, the mask branch's).
 Prints one JSON object with the card's name and power limit and how the
 config computes (fp32 without TF32, or bf16 with fp32 islands), as the infer
 CLI and chip_smoke.py run.
@@ -33,10 +36,11 @@ import torch
 from simpledet_torch.eval.postprocess import per_class_nms
 from simpledet_torch.infer import (Detector, card_name_and_power, full_fp32,
                                    precision, synthetic_batch)
-from simpledet_torch.models import dcn, mask_rcnn, sepc
+from simpledet_torch.models import dcn, mask_rcnn, reppoints, sepc
 from simpledet_torch.models.cascade_rcnn import STAGES, CascadeRcnn
 from simpledet_torch.models.faster_rcnn import RpnOnly
 from simpledet_torch.models.mask_rcnn import MaskFasterRcnn
+from simpledet_torch.models.reppoints import RepPoints
 from simpledet_torch.models.retinanet import RetinaNet
 from simpledet_torch.models.tridentnet import TridentFasterRcnn
 from simpledet_torch.ops.image import device_normalize
@@ -44,7 +48,7 @@ from simpledet_torch.ops.image import device_normalize
 # the models' torch.profiler ranges, each a span over the kernels launched
 # inside it
 PROFILER_RANGES = (mask_rcnn.PROFILER_RANGES + dcn.PROFILER_RANGES
-                   + sepc.PROFILER_RANGES)
+                   + sepc.PROFILER_RANGES + reppoints.PROFILER_RANGES)
 
 
 def cascade_stages(m, st, im_info):
@@ -170,12 +174,21 @@ def stages(det, images, im_info):
         def subnets():
             st["outs"] = m.head_module(st["pyr"])
 
+        def towers():
+            st["towers"] = m.head_module.towers(st["pyr"])
+
+        def refine():
+            st["outs"] = m.head_module.refine(st["towers"])
+
+        heads = ([("towers", towers), ("refine", refine)]
+                 if isinstance(m, RepPoints) else [("subnets", subnets)])
+
         def decode():
             out = m.test_outputs(st["outs"], im_info)
             st["score"], st["boxes"] = out["cls_score"], out["bbox_xyxy"]
 
         return [("normalize", norm), ("backbone", backbone), *necks,
-                ("subnets", subnets), ("decode_topk", decode),
+                *heads, ("decode_topk", decode),
                 ("per_class_nms", nms)]
     if isinstance(m, TridentFasterRcnn):
         return trident_stages(m, st, im_info, norm, nms)

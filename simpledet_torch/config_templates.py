@@ -1,13 +1,15 @@
 """The config factories that the ported configs are built on: a copy of
 `faster_fpn_config`, `standard_transforms`, `retina_fpn_config`,
-`trident_c4_config`, `multiscale_transforms` and `mask_fpn_config` from
-`simpledet_tpu/config_templates.py`, kept in the port so that it imports
-nothing of the JAX package (`multiscale_transforms` takes its
-RandResize2DImageBbox from the port's `data/transforms.py`). A neck, head
-or backbone that a config passes to a template (FreeAnchor, SEPC, NASFPN,
-EfficientNet to `retina_fpn_config`; the SE backbone and mask head to
-`mask_fpn_config`; the DCN backbones to `trident_c4_config`) is recorded as
-the stand-in it is, and `dsl.build_detector` refuses it by name.
+`trident_c4_config`, `multiscale_transforms`, `mask_fpn_config` and
+`reppoints_config` from `simpledet_tpu/config_templates.py`, kept in the
+port so that it imports nothing of the JAX package (`multiscale_transforms`
+takes its RandResize2DImageBbox from the port's `data/transforms.py`;
+`reppoints_config(multiscale=True)` trains on it). A neck, head or
+backbone that a config passes to a template (FreeAnchor's head, SEPC,
+NASFPN, EfficientNet to `retina_fpn_config`; the SE backbone and mask head
+to `mask_fpn_config`; the DCN backbones to `trident_c4_config` and
+`reppoints_config`) is recorded as the stand-in it is, and
+`dsl.build_detector` builds it or refuses it by name.
 `mask_fpn_config` sets its normalizer on every param class; the port
 normalises the backbone only, as the JAX DSL does (`dsl.py`).
 
@@ -1016,6 +1018,182 @@ def mask_fpn_config(is_train, name, *, depth=50, variant="v1",
         metric.AccWithIgnore("RpnAcc", ["rpn_cls_logit", "rpn_label"], []),
         metric.AccWithIgnore("RcnnAcc", ["bbox_cls_logit", "bbox_label"], []),
         metric.ScalarLoss("MaskLoss", ["mask_loss"], []),
+    ]
+    return (General, KvstoreParam, RpnParam, RoiParam, BboxParam,
+            DatasetParam, ModelParam, OptimizeParam, TestParam,
+            transform, data_name, label_name, metric_list)
+
+
+def reppoints_config(is_train, name, *, depth=50, variant="v1",
+                     point_transform="moment", schedule_mult=1,
+                     backbone=None, multiscale=False):
+    """RepPoints config family (reference config/RepPoints/): moment/minmax
+    transforms, r50/r101, optional DCN backbone + multiscale 2x."""
+    from models.RepPoints.builder import (RepPointsDetector, RepPointsHead,
+                                          FCOSFPNNeck)
+    from models.FPN import builder as fpn_builder
+    from mxnext.complicate import normalizer_factory
+
+    class General:
+        log_frequency = 10
+        loader_worker = 8
+
+    General.name = name.rsplit("/")[-1].rsplit(".")[-1]
+    General.batch_image = 2 if is_train else 1
+    General.fp16 = False
+
+    class KvstoreParam:
+        kvstore = "mesh"
+        gpus = list(range(8))
+
+    KvstoreParam.batch_image = General.batch_image
+    KvstoreParam.fp16 = General.fp16
+
+    class NormalizeParam:
+        normalizer = normalizer_factory(type="fixbn")
+
+    class BackboneParam:
+        pass
+
+    BackboneParam.fp16 = General.fp16
+    BackboneParam.normalizer = NormalizeParam.normalizer
+    BackboneParam.depth = depth
+
+    class NeckParam:
+        pass
+
+    NeckParam.fp16 = General.fp16
+    NeckParam.normalizer = NormalizeParam.normalizer
+
+    class RpnParam:
+        num_class = 1 + 80
+
+        class point_generate:
+            num_points = 9
+            scale = 4
+            stride = (8, 16, 32, 64, 128)
+
+        class head:
+            conv_channel = 256
+            point_conv_channel = 256
+
+        class proposal:
+            pre_nms_top_n = 1000
+            min_det_score = 0.05
+
+        class point_target:
+            target_scale = 4
+            num_pos = 1
+
+        class bbox_target:
+            pos_iou_thr = 0.5
+            neg_iou_thr = 0.4
+            min_pos_iou = 0.0
+
+        class focal_loss:
+            alpha = 0.25
+            gamma = 2.0
+
+    RpnParam.fp16 = General.fp16
+    RpnParam.normalizer = NormalizeParam.normalizer
+    RpnParam.batch_image = General.batch_image
+    RpnParam.point_generate.transform = point_transform
+
+    class BboxParam:
+        pass
+
+    class RoiParam:
+        pass
+
+    class DatasetParam:
+        if is_train:
+            image_set = ("coco_train2017",)
+        else:
+            image_set = ("coco_val2017",)
+
+    if backbone is None:
+        bb_name = {("v1", 50): "MSRAResNet50V1FPN",
+                   ("v1", 101): "MSRAResNet101V1FPN",
+                   ("v1b", 50): "ResNet50V1bFPN",
+                   ("v1b", 101): "ResNet101V1bFPN"}[(variant, depth)]
+        backbone = getattr(fpn_builder, bb_name)
+    bb = backbone(BackboneParam)
+    neck = FCOSFPNNeck(NeckParam)
+    head = RepPointsHead(RpnParam)
+    detector = RepPointsDetector()
+    if is_train:
+        train_sym = detector.get_train_symbol(bb, neck, head)
+        test_sym = None
+    else:
+        train_sym = None
+        test_sym = detector.get_test_symbol(bb, neck, head)
+
+    class ModelParam:
+        train_symbol = train_sym
+        test_symbol = test_sym
+        rpn_test_symbol = None
+        from_scratch = False
+        random = True
+        memonger = False
+
+        class pretrain:
+            epoch = 0
+            fixed_param = ["conv0", "stage1", "scale", "bias"]
+
+    ModelParam.pretrain.prefix = f"pretrain_model/resnet-{variant}-{depth}"
+
+    n_dev_img = len(KvstoreParam.gpus) * KvstoreParam.batch_image
+
+    class OptimizeParam:
+        class optimizer:
+            type = "sgd"
+            momentum = 0.9
+            wd = 0.0001
+            clip_gradient = None
+
+        class schedule:
+            begin_epoch = 0
+
+        class warmup:
+            type = "gradual"
+            iter = 500
+
+    OptimizeParam.optimizer.lr = 0.01 / 8 * n_dev_img
+    OptimizeParam.warmup.lr = 0.01 / 8 * n_dev_img / 3.0
+    OptimizeParam.schedule.end_epoch = 6 * schedule_mult
+    OptimizeParam.schedule.lr_iter = [
+        60000 * 16 * schedule_mult // n_dev_img,
+        80000 * 16 * schedule_mult // n_dev_img]
+    OptimizeParam.schedule.iter_per_epoch = 90000 * 16 // n_dev_img // 6
+
+    class TestParam:
+        min_det_score = 0
+        max_det_per_image = 100
+        process_roidb = lambda x: x          # noqa: E731
+        process_output = lambda x, y: x      # noqa: E731
+
+        class model:
+            pass
+
+        class nms:
+            type = "nms"
+            thr = 0.5
+
+        class coco:
+            annotation = "data/coco/annotations/instances_val2017.json"
+
+    TestParam.model.prefix = f"experiments/{General.name}/checkpoint"
+    TestParam.model.epoch = 6 * schedule_mult
+
+    if multiscale and is_train:
+        transform, data_name, label_name = multiscale_transforms(is_train)
+    else:
+        transform, data_name, label_name = standard_transforms(is_train)
+    import core.detection_metric as metric
+    metric_list = [
+        metric.ScalarLoss("ClsL", ["reppoints_cls_loss"], []),
+        metric.ScalarLoss("InitL", ["reppoints_init_loss"], []),
+        metric.ScalarLoss("RefineL", ["reppoints_refine_loss"], []),
     ]
     return (General, KvstoreParam, RpnParam, RoiParam, BboxParam,
             DatasetParam, ModelParam, OptimizeParam, TestParam,

@@ -25,8 +25,8 @@ trainer, the loader and the CLIs read. The symbol's components are placed
 under the names of the detector's get_*_symbol arguments in the JAX DSL
 (`ROLES`: `bbox_head_2nd` and `bbox_head_3rd` for CascadeRcnn,
 `mask_roi_extractor`, `mask_head` and `bbox_post_processor` for
-MaskFasterRcnn; RetinaNet and RPN take a backbone, a neck and an
-`rpn_head`), every one of them, each with every param class it was
+MaskFasterRcnn; RetinaNet, RPN (FCOS's detector too) and
+RepPointsDetector take a backbone, a neck and an `rpn_head`), every one of them, each with every param class it was
 given (`MaskFasterRcnn4ConvHead(BboxParam, MaskParam, MaskRoiParam)`); a
 detector without roles there, a component that has no role, or an argument
 given by keyword raises NotImplementedError, except the keywords a detector
@@ -331,7 +331,12 @@ ROLES = {
     # the JAX DSL names RetinaNet's third argument `head`; it is the RPN
     # head's role, its param class is the config's RpnParam
     "RetinaNet": ("backbone", "neck", "rpn_head"),
+    # FCOS configs build the RPN detector with an FCOSFPNNeck and an
+    # FCOSFPNHead (`config/fcos_r50v1_fpn_1x.py`)
     "RPN": ("backbone", "neck", "rpn_head"),
+    # the JAX DSL names the third argument `head`; its param class is the
+    # config's RpnParam, as RetinaNet's
+    "RepPointsDetector": ("backbone", "neck", "rpn_head"),
     "TridentFasterRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
                           "bbox_head"),
 }

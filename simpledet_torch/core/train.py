@@ -12,7 +12,9 @@ batch; DDP averages the ranks' gradients, so each rank's loss is its share
 of the global mean: the box head's and the RPN regression's divisors are
 constants per image, the RPN classification's count of valid anchors and
 RetinaNet's foreground count (the reference's sync_loss) are summed over
-the group (`models/rpn.py`, `models/retinanet.py`). SyncBN sums its statistics over the
+the group (`models/rpn.py`, `models/retinanet.py`; FCOS's positive count
+and centerness sums, RepPoints' foreground counts and FreeAnchor's gt count
+likewise). SyncBN sums its statistics over the
 group, so its running statistics are the same on every rank: DDP does not
 broadcast buffers. The losses a step returns are averaged over the group,
 the global batch's losses. Remat and QAT are not ported yet.
@@ -48,8 +50,8 @@ def fold_detector_stats(model, data, im_info):
 class Trainer:
     """A detector, its optimizer, its schedule and the samplers' generator.
 
-    model: a FasterRcnn, CascadeRcnn, MaskFasterRcnn, RetinaNet or
-    RpnOnly; schedule: step ->
+    model: a FasterRcnn, CascadeRcnn, MaskFasterRcnn, RetinaNet (FreeAnchor
+    too), FCOS, RepPoints or RpnOnly; schedule: step ->
     lr; fixed_param and excluded_param: the freezing substrings; pixel_norm:
     (mean, std) for uint8 batches; seed: the samplers' torch.Generator seed (plus the rank).
     `timer`, when set, is called with "forward", "backward" and "optimizer"

@@ -21,8 +21,8 @@ a backbone (`class TinyBackbone(MSRAResNet50V1FPN): depth = 18`) builds its
 base's variant at its depth.
 RetinaNet takes `RetinaNetNeck` (256 wide) and `RetinaNetHead` (towers as
 wide as RpnParam.head.conv_channel), fp32 only; RPN takes the flagship's
-backbone, neck and RPN head and builds `RpnOnly` (the JAX package's RPN
-detector also hosts FCOS, whose neck and head the port does not have).
+backbone, neck and RPN head and builds `RpnOnly` (with FCOS's neck and
+head it builds FCOS, as the JAX package's RPN detector does).
 TridentFasterRcnn (every C4 Faster R-CNN: one branch, not scale-aware)
 takes a trident C4 backbone (`C4_BACKBONES`: its depth from its param
 class, its branches and dilations from the param class's `trident`, as
@@ -47,7 +47,16 @@ norm only for a syncbn, localbn or gn normalizer, as
 SEPC: `Pconv_num` (4 unset), `pconv_deform`, `lcconv_deform`, `ibn`, read
 from the second param class, none given reading as unset); its heads
 `RetinaNetHeadWithBN` (a norm per tower conv and level) and
-`RetinaNetHeadWithBNWithSEPC` (predictors on the SEPC halves).
+`RetinaNetHeadWithBNWithSEPC` (predictors on the SEPC halves), and
+`FreeAnchorRetinaNetHead` (RetinaNet's subnets, the learning-to-match
+losses). The dense single-stage heads, fp32 only, on the FCOS neck
+(`FCOSFPNNeck`: RetinaNet's P3-P7 neck, 256 wide, P6 from the output P5,
+no norm whatever its param class names, as `simpledet_tpu/dsl.py:992-1001`
+builds it): RPN with an `FCOSFPNHead` builds FCOS (towers as wide as
+RpnParam.head.conv_channel, FCOSParam's classes and strides), and
+`RepPointsDetector` takes a `BACKBONES` or DCN FPN backbone, the FCOS neck
+and a `RepPointsHead` (towers head.conv_channel wide, the deformable convs'
+outputs head.point_conv_channel wide).
 """
 import torch
 
@@ -58,11 +67,15 @@ from simpledet_torch.models.cascade_rcnn import (CascadeRcnn,
 from simpledet_torch.models.dcn import (C4StrideKeyAdapter, DCNBottleneck,
                                         DCNv2Bottleneck)
 from simpledet_torch.models.faster_rcnn import FasterRcnn, RpnOnly
+from simpledet_torch.models.fcos import FCOS, FCOSHead, FCOSSubnets
 from simpledet_torch.models.fpn import FPNNeck, Neck
+from simpledet_torch.models.freeanchor import FreeAnchorRetinaNetHead
 from simpledet_torch.models.heads import Bbox2fcHead
 from simpledet_torch.models.mask_rcnn import MaskFasterRcnn, MaskHead4Conv
 from simpledet_torch.models.nasfpn import NASFPNNeck, TopDownBottomUpFPNNeck
 from simpledet_torch.models.norm import normalizer_factory
+from simpledet_torch.models.reppoints import (RepPoints, RepPointsHead,
+                                              RepPointsSubnets)
 from simpledet_torch.models.resnet import ResNet
 from simpledet_torch.models.retinanet import (RetinaNet, RetinaNetHead,
                                               RetinaNetNeck, RetinaSubnets)
@@ -90,14 +103,14 @@ HYBRID_BACKBONES = {"DCNResNetFPN": (DCNBottleneck, 4),
 RETINA_NECKS = ("RetinaNetNeck", "RetinaNetNeckWithBN", "NASFPNNeck",
                 "TopDownBottomUpFPNNeck", "RetinaNetNeckWithBNWithSEPC")
 RETINA_HEADS = ("RetinaNetHead", "RetinaNetHeadWithBN",
-                "RetinaNetHeadWithBNWithSEPC")
+                "RetinaNetHeadWithBNWithSEPC", "FreeAnchorRetinaNetHead")
+FPN_HYBRIDS = ("DCNResNetFPN", "DCNv2ResNetFPN")
 _COMMON = {"backbone": tuple(BACKBONES), "neck": ("FPNNeck",),
            "rpn_head": ("FPNRpnHead",), "roi_extractor": ("FPNRoiAlign",)}
 _CASCADE_HEAD = ("CascadeBbox2fcHead",)
 # detector -> role -> the component classes the port builds for it
 SUPPORTED = {
-    "FasterRcnn": dict(_COMMON, backbone=tuple(BACKBONES) + (
-        "DCNResNetFPN", "DCNv2ResNetFPN"),
+    "FasterRcnn": dict(_COMMON, backbone=tuple(BACKBONES) + FPN_HYBRIDS,
         bbox_head=("FPNBbox2fcHead", "Bbox2fcHead")),
     "CascadeRcnn": dict(_COMMON, bbox_head=_CASCADE_HEAD,
                         bbox_head_2nd=_CASCADE_HEAD,
@@ -110,8 +123,11 @@ SUPPORTED = {
     "RetinaNet": {"backbone": tuple(BACKBONES), "neck": RETINA_NECKS,
                   "rpn_head": RETINA_HEADS},
     "RPN": {"backbone": tuple(BACKBONES) + tuple(C4_BACKBONES),
-            "neck": ("FPNNeck", "Neck"),
-            "rpn_head": ("FPNRpnHead", "TridentRpnHead")},
+            "neck": ("FPNNeck", "Neck", "FCOSFPNNeck"),
+            "rpn_head": ("FPNRpnHead", "TridentRpnHead", "FCOSFPNHead")},
+    "RepPointsDetector": {"backbone": tuple(BACKBONES) + FPN_HYBRIDS,
+                          "neck": ("FCOSFPNNeck",),
+                          "rpn_head": ("RepPointsHead",)},
     "TridentFasterRcnn": {"backbone": tuple(C4_BACKBONES) + (
         "DCNResNetC4S16", "DCNv2ResNetC4S16"), "neck": ("Neck",),
                           "rpn_head": ("TridentRpnHead",),
@@ -192,16 +208,21 @@ def _retina_neck(comp, in_channels):
                                   **kw), filters
 
 
-def _retinanet(comps, backbone):
-    """RetinaNet from its neck's and head's param classes; fp32 only."""
+def _fp32_only(detector, comps):
     for role in ("backbone", "neck", "rpn_head"):
         if _dtype(comps[role].param) != torch.float32:
             raise NotImplementedError(
-                f"the bf16 RetinaNet ({role} {comps[role].name} sets fp16) "
+                f"the bf16 {detector} ({role} {comps[role].name} sets fp16) "
                 "is not ported yet")
+
+
+def _retinanet(comps, backbone):
+    """RetinaNet from its neck's and head's param classes; fp32 only."""
+    _fp32_only("RetinaNet", comps)
     neck, width = _retina_neck(comps["neck"], backbone.out_channels[1:])
     comp = comps["rpn_head"]
-    head = RetinaNetHead(comp.param)
+    head = (FreeAnchorRetinaNetHead if comp.name == "FreeAnchorRetinaNetHead"
+            else RetinaNetHead)(comp.param)
     if comp.name == "RetinaNetHeadWithBNWithSEPC":
         subnets = SEPCSubnets(head.num_anchor, head.num_fg_class, width // 2)
     else:
@@ -211,6 +232,27 @@ def _retinanet(comps, backbone):
                                 head.p.head.conv_channel or 256, width,
                                 norm=norm, strides=head.strides)
     return RetinaNet(backbone, neck, subnets, head)
+
+
+def _dense(detector, comps, backbone):
+    """FCOS (an RPN with FCOSFPNHead) or RepPoints on the FCOS neck; fp32
+    only."""
+    _fp32_only(detector, comps)
+    head_name = comps["rpn_head"].name
+    if (comps["neck"].name == "FCOSFPNNeck") != (head_name in (
+            "FCOSFPNHead", "RepPointsHead")):
+        raise NotImplementedError(f"{comps['neck'].name} with {head_name}")
+    neck = RetinaNetNeck(backbone.out_channels[1:], 256, p6_source="p5")
+    p = comps["rpn_head"].param
+    width = p.head.conv_channel or 256
+    if detector == "RPN":
+        head = FCOSHead(p)
+        return FCOS(backbone, neck, FCOSSubnets(head.num_fg_class, width, 256,
+                                                head.strides), head)
+    head = RepPointsHead(p)
+    return RepPoints(backbone, neck, RepPointsSubnets(
+        head.num_fg_class, head.num_points, width,
+        p.head.point_conv_channel or width, 256), head)
 
 
 def _backbone(comp, depth):
@@ -261,16 +303,20 @@ def _trident(spec, backbone, rpn_module, rpn, depth):
 
 
 def build_detector(spec, *, depth=None):
-    """FasterRcnn, CascadeRcnn, MaskFasterRcnn, RetinaNet, RpnOnly or
-    TridentFasterRcnn (on the CPU, weights not yet initialised) from a
-    ConfigSpec. `depth` overrides the backbone's depth, and a C5 head's
-    (tests use 18)."""
+    """FasterRcnn, CascadeRcnn, MaskFasterRcnn, RetinaNet, RpnOnly,
+    TridentFasterRcnn, FCOS or RepPoints (on the CPU, weights not yet
+    initialised) from a ConfigSpec. `depth` overrides the backbone's depth,
+    and a C5 head's (tests use 18)."""
     comps = spec.components
     _require(spec.detector, comps)
 
     backbone = _backbone(comps["backbone"], depth)
     if spec.detector == "RetinaNet":
         return _retinanet(comps, backbone)
+    fcos = {comps["neck"].name, comps["rpn_head"].name} & {"FCOSFPNNeck",
+                                                           "FCOSFPNHead"}
+    if spec.detector == "RepPointsDetector" or fcos:
+        return _dense(spec.detector, comps, backbone)
     c4 = isinstance(backbone, (TridentResNetC4, C4StrideKeyAdapter))
     if c4 != (comps["neck"].name == "Neck"):
         raise NotImplementedError(f"{comps['neck'].name} on the backbone "

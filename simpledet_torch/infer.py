@@ -6,8 +6,9 @@ on the device, runs the test forward and the per-class NMS, and returns
 boxes, scores and classes per image; a Mask R-CNN runs its NMS inside its
 test forward and adds each kept box's class's mask probabilities (pasting
 them into the image is eval work: `eval/segm.py`). A RetinaNet's test
-forward gives the top candidates of each level, which the per-class NMS
-takes as it takes a Faster R-CNN's rois. An RPN-only config
+forward (FCOS's and RepPoints' too) gives the top candidates of each
+level, FreeAnchor's its top anchors with their full class rows, which the
+per-class NMS takes as it takes a Faster R-CNN's rois. An RPN-only config
 (`config/rpn_r50v1_fpn_1x.py`) serves proposals (`Detector.propose`), which
 this CLI then times.
 

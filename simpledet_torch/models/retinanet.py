@@ -40,16 +40,22 @@ NUM_CONV, PRIOR_PROB = 4, 0.01
 class RetinaNetNeck(nn.Module):
     """{"c3", "c4", "c5"} -> {"stride8": P3, ..., "stride128": P7}: 1x1
     laterals on c3-c5 with the top-down sum (a x2 nearest repeat cropped to
-    the lateral's shape), 3x3 output convs, P6 a 3x3 stride-2 conv on C5,
-    P7 one on relu(P6)."""
+    the lateral's shape), 3x3 output convs, P6 a 3x3 stride-2 conv on C5
+    (p6_source "c5") or on the output P5 (p6_source "p5": FCOS's neck,
+    `FCOSFPNNeck`), P7 one on relu(P6)."""
 
-    def __init__(self, in_channels, filters, norm=None):
+    def __init__(self, in_channels, filters, norm=None, p6_source="c5"):
         super().__init__()
         for stage, cin in zip((3, 4, 5), in_channels):
             self.add_module(f"P{stage}_lateral", nn.Conv2d(cin, filters, 1))
             self.add_module(f"P{stage}_conv",
                             nn.Conv2d(filters, filters, 3, padding=1))
-        self.P6_conv = SameConv2d(in_channels[2], filters, 3, stride=2)
+        if p6_source not in ("c5", "p5"):
+            raise ValueError(f"p6_source {p6_source!r}")
+        self.p6_source = p6_source
+        self.P6_conv = SameConv2d(
+            in_channels[2] if p6_source == "c5" else filters, filters, 3,
+            stride=2)
         self.P7_conv = SameConv2d(filters, filters, 3, stride=2)
         self.has_norm = norm is not None
         if self.has_norm:
@@ -67,10 +73,12 @@ class RetinaNetNeck(nn.Module):
         p4 = upsample2x_to(p5, p4_la.shape[2:]) + p4_la
         p3_la = self._norm(self.P3_lateral(c3), "P3_lateral")
         p3 = upsample2x_to(p4, p3_la.shape[2:]) + p3_la
-        p6 = self._norm(self.P6_conv(c5), "P6")
+        p5c = self._norm(self.P5_conv(p5), "P5")
+        p6 = self._norm(self.P6_conv(c5 if self.p6_source == "c5" else p5c),
+                        "P6")
         return {"stride8": self._norm(self.P3_conv(p3), "P3"),
                 "stride16": self._norm(self.P4_conv(p4), "P4"),
-                "stride32": self._norm(self.P5_conv(p5), "P5"),
+                "stride32": p5c,
                 "stride64": p6,
                 "stride128": self._norm(self.P7_conv(F.relu(p6)), "P7")}
 
@@ -223,15 +231,23 @@ class RetinaNetHead(AnchorHead):
             boxes_l.append(clip_boxes(boxes, im_info[:, None, :2]))
             scores_l.append(top_s)
             cls_l.append(top_i % nfg + 1)
-        boxes = torch.cat(boxes_l, 1)
-        scores = torch.cat(scores_l, 1)
-        ok = scores > NEG_INF / 2
-        scores = torch.where(ok, scores, torch.zeros_like(scores))
-        onehot = torch.cat(cls_l, 1)[..., None] == torch.arange(
-            p.num_class, device=scores.device)
-        cls_score = torch.where(onehot, scores[..., None],
-                                torch.zeros_like(scores[..., None]))
-        return cls_score, boxes, ok
+        return sparse_detections(boxes_l, scores_l, cls_l, p.num_class)
+
+
+def sparse_detections(boxes_l, scores_l, cls_l, num_class):
+    """The levels' top candidates (boxes [B, k, 4], scores [B, k], NEG_INF
+    where invalid, classes [B, k] in 1..C-1) concatenated into (cls_score
+    [B, K, C] with only each row's class column set, bbox_xyxy [B, K, 4],
+    valid [B, K]), the layout the per-class NMS takes."""
+    boxes = torch.cat(boxes_l, 1)
+    scores = torch.cat(scores_l, 1)
+    ok = scores > NEG_INF / 2
+    scores = torch.where(ok, scores, torch.zeros_like(scores))
+    onehot = torch.cat(cls_l, 1)[..., None] == torch.arange(
+        num_class, device=scores.device)
+    cls_score = torch.where(onehot, scores[..., None],
+                            torch.zeros_like(scores[..., None]))
+    return cls_score, boxes, ok
 
 
 class RetinaNet(nn.Module):
@@ -270,7 +286,7 @@ class RetinaNet(nn.Module):
     def test_outputs(self, outs, im_info):
         cls_score, boxes, valid = self.head.prediction(outs, im_info)
         return {"cls_score": cls_score,
-                "bbox_xyxy": boxes.repeat(1, 1, self.head.p.num_class),
+                "bbox_xyxy": boxes.repeat(1, 1, cls_score.shape[-1]),
                 "det_valid": valid}
 
     def init_weights(self, gen):

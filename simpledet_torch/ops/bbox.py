@@ -1,7 +1,8 @@
 """Box geometry on tensors: legacy +1 widths, Detectron-style delta clip.
 
 Counterpart of `simpledet_tpu/ops/bbox.py`. Boxes are [..., N, 4] in
-(x1, y1, x2, y2) order; widths are x2 - x1 + 1.
+(x1, y1, x2, y2) order; widths are x2 - x1 + 1 (`bbox_overlaps` without
+legacy_plus_one: x2 - x1).
 """
 import math
 
@@ -11,15 +12,17 @@ import torch
 BBOX_XFORM_CLIP = math.log(1000.0 / 16.0)
 
 
-def bbox_overlaps(boxes, query_boxes):
-    """IoU matrix between boxes [..., N, 4] and query_boxes [..., K, 4]."""
+def bbox_overlaps(boxes, query_boxes, legacy_plus_one=True):
+    """IoU matrix between boxes [..., N, 4] and query_boxes [..., K, 4];
+    widths x2 - x1 + 1 with legacy_plus_one, else x2 - x1."""
+    off = 1.0 if legacy_plus_one else 0.0
     b = boxes[..., :, None, :]
     q = query_boxes[..., None, :, :]
-    iw = torch.minimum(b[..., 2], q[..., 2]) - torch.maximum(b[..., 0], q[..., 0]) + 1.0
-    ih = torch.minimum(b[..., 3], q[..., 3]) - torch.maximum(b[..., 1], q[..., 1]) + 1.0
+    iw = torch.minimum(b[..., 2], q[..., 2]) - torch.maximum(b[..., 0], q[..., 0]) + off
+    ih = torch.minimum(b[..., 3], q[..., 3]) - torch.maximum(b[..., 1], q[..., 1]) + off
     inter = iw.clamp(min=0.0) * ih.clamp(min=0.0)
-    area_b = (b[..., 2] - b[..., 0] + 1.0) * (b[..., 3] - b[..., 1] + 1.0)
-    area_q = (q[..., 2] - q[..., 0] + 1.0) * (q[..., 3] - q[..., 1] + 1.0)
+    area_b = (b[..., 2] - b[..., 0] + off) * (b[..., 3] - b[..., 1] + off)
+    area_q = (q[..., 2] - q[..., 0] + off) * (q[..., 3] - q[..., 1] + off)
     union = area_b + area_q - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 

@@ -12,7 +12,11 @@ follow the Flax names, so a leaf `a/b/kernel` becomes `a.b.weight`:
     as many inputs as outputs), so only the values show a missing flip;
   - a Dense kernel [in, out] becomes a Linear weight [out, in];
   - a trident unit's shared 3 x 3 kernel, the leaf `conv2_kernel` (a
-    `self.param` of the unit, HWIO), keeps its name and becomes OIHW;
+    `self.param` of the unit, HWIO), keeps its name and becomes OIHW; so do
+    RepPoints' deformable kernels `cls_conv_kernel` and
+    `pts_refine_conv_kernel`;
+  - the raw parameters FCOS's `offset_scale_{stride key}` and RepPoints'
+    top-level `moment_transfer` keep their names and values (RAW_PARAMS);
   - `bias` stays `bias`; FrozenBN `scale` / `bias` land on its buffers,
     SyncBN's `gamma` / `beta` and GroupNorm's `scale` / `bias` on their
     parameters.
@@ -31,7 +35,10 @@ LEAVES = ("bias", "scale", "gamma", "beta", "mean", "var")
 # modules whose Flax kernel is an nn.ConvTranspose's
 TRANSPOSED_CONVS = ("mask_up",)
 # conv kernels that are a module's own parameter, under their Flax names
-SHARED_KERNELS = ("conv2_kernel",)
+SHARED_KERNELS = ("conv2_kernel", "cls_conv_kernel",
+                  "pts_refine_conv_kernel")
+# raw parameters of a module or the model, by name prefix: kept as they are
+RAW_PARAMS = ("offset_scale_", "moment_transfer")
 
 
 def _flatten(tree, prefix=()):
@@ -58,7 +65,7 @@ def convert_leaf(path, value):
         leaf = "weight"
     elif leaf in SHARED_KERNELS:
         value = value.transpose(3, 2, 0, 1)
-    elif leaf not in LEAVES:
+    elif leaf not in LEAVES and not leaf.startswith(RAW_PARAMS):
         raise ValueError(f"{'/'.join(path)}: unknown leaf {leaf!r}")
     return ".".join(mods + [leaf]), torch.from_numpy(
         np.array(value, dtype=np.float32, order="C"))

@@ -8,7 +8,7 @@
   cells, S0 kernel and norm, SEPC's PConv count, deformable parts and iBN
   (the neck's Flax leaves against the port's, from `jax.eval_shape`), the
   subnets' norm and width, and the fixed parameters.
-- `python -m simpledet_torch.config_coverage` counts 110 of 152 config
+- `python -m simpledet_torch.config_coverage` counts 121 of 152 config
   files built (in a process of its own: configs read the environment).
 - config/converge_sepc.py and config/converge_nasfpn.py through the port's
   train CLI (2 iterations): their `.params` and `.batch_stats` leaves are
@@ -193,9 +193,9 @@ def test_config_builds_what_the_jax_reader_builds(path, is_train):
 def test_coverage_probe_counts_110_of_152():
     """`python -m simpledet_torch.config_coverage --list`, in a process of
     its own with only PATH and PYTHONPATH set (a config reads the
-    environment: `config/micro_test.py` picks its backbone from it): 110
-    of the 152 config files build in both modes, this family's 21 among
-    them."""
+    environment: `config/micro_test.py` picks its backbone from it): 121
+    of the 152 config files build in both modes (110 before FCOS,
+    RepPoints and FreeAnchor), this family's 21 among them."""
     import subprocess
     import sys
 
@@ -204,7 +204,7 @@ def test_coverage_probe_counts_110_of_152():
         [sys.executable, "-m", "simpledet_torch.config_coverage", "--list"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("110 of 152 config files read and build "
+    assert out.stdout.startswith("121 of 152 config files read and build "
                                  "in both modes"), out.stdout
     for path in CONFIGS:
         assert f" {path}\n" not in out.stdout, path

@@ -96,6 +96,20 @@ def test_reading_and_building_imports_no_jax():
         "            net = build_detector(spec, depth=18)\n"
         "        assert type(net).__name__ in ('RetinaNet', "
         "'TridentFasterRcnn', 'FasterRcnn'), cfg\n"
+        # FCOS, RepPoints (the DCN one) and FreeAnchor, at depth 18 on the
+        # meta device
+        "import simpledet_torch.models.fcos, simpledet_torch.ops.points\n"
+        "import simpledet_torch.models.reppoints\n"
+        "import simpledet_torch.models.freeanchor\n"
+        "for cfg, kind in (('fcos_r50v1_fpn_1x', 'FCOS'), "
+        "('RepPoints/reppoints_moment_dcn_r101v1b_fpn_multiscale_2x', "
+        "'RepPoints'), ('FreeAnchor/free_anchor_r50v1_fpn_1x', "
+        "'RetinaNet')):\n"
+        "    for tr in (False, True):\n"
+        "        spec = read_config(f'config/{cfg}.py', tr)\n"
+        "        with torch.device('meta'):\n"
+        "            net = build_detector(spec, depth=18)\n"
+        "        assert type(net).__name__ == kind, cfg\n"
         "for variant in ('v1b', 'v1d'):\n"
         "    os.environ['SIMPLEDET_MICRO_BACKBONE'] = variant\n"
         "    net = build_detector(read_config('config/micro_test.py', True))\n"

@@ -305,12 +305,11 @@ def test_flagship_config_builds_and_maps_all_leaves():
 
 
 @pytest.mark.parametrize("path,what", [
-    # FCOS on the RPN detector: its neck is met first (RetinaNet and the
-    # RPN-only detector are read and built since they were ported)
-    ("config/fcos_r50v1_fpn_1x.py", "FCOSFPN"),
-    # retina_fpn_config with a head override the port does not have
-    ("config/FreeAnchor/free_anchor_r50v1_fpn_1x.py",
-     "FreeAnchorRetinaNetHead"),
+    # detectors whose components the reader has no roles for (FCOS on the
+    # RPN detector and FreeAnchor's head are read and built since they
+    # were ported)
+    ("config/TSD/tsd_r50v1_fpn_1x.py", "TSDFasterRcnn"),
+    ("config/crowdhuman/doublepred_r50v1b_fpn_1x.py", "DoublePredRcnn"),
     # Mask-Scoring R-CNN: a detector whose components the reader has no
     # roles for (Mask R-CNN itself is read and built since it was ported)
     ("config/ms_r50v1_fpn_1x.py", "MaskScoringFasterRcnn"),

@@ -694,13 +694,14 @@ def test_retina_config_maps_every_leaf_of_the_jax_model():
 
 
 @pytest.mark.parametrize("path,what", [
-    # (SEPC and the NAS-FPN necks are read and built since they were
-    # ported): a RetinaNet backbone and a head the port does not have
+    # (SEPC and the NAS-FPN necks and FreeAnchor's head are read and built
+    # since they were ported): RetinaNet backbones the port does not have,
+    # and two more components it does not have, a PAFPN neck and the SE
+    # backbone
     ("config/efficientnet/efficientnet_b5_fpn_bn_scratch_400_6x.py",
      "EfficientNetB5FPN"),
-    ("config/FreeAnchor/free_anchor_r101v1_fpn_1x.py",
-     "FreeAnchorRetinaNetHead"),
-    ("config/converge_freeanchor.py", "FreeAnchorRetinaNetHead"),
+    ("config/FPG/faster_r50v1b_pafpn3_256_syncbn_1x.py", "PAFPNNeck"),
+    ("config/se/mask_se-r50v1b_fpn_bn_scratch_2x.py", "SEResNetFPN"),
     ("config/efficientnet/retina_effb4_fpn_1x.py", "EfficientNetB4FPN"),
 ])
 def test_unported_retina_variants_raise_naming_what_is_missing(path, what):
