@@ -17,12 +17,17 @@ proposals; for a C4 / TridentNet config: normalise, trunk (stem and stages 1-2),
 (stage 3 on every branch), RPN head, proposals, RoIAlign, C5 head, then the
 decode, the branches' merge and the per-class NMS; a DCN C4 config's
 backbone is one stage; a SEPC RetinaNet's neck splits into its FPN and its
-SEPC part), timing each stage with CUDA events over `count` requests, then
+SEPC part; a PAFPN or FPG Faster R-CNN splits its backbone and its neck; a
+TSD config's box head stage is the TSD head with its two deformable pools
+(profiler range `tsd_pool`) and the decode against rois_r; a Mask Scoring
+R-CNN config adds the MaskIoU head and the mask scores after the mask
+head), timing each stage with CUDA events over `count` requests, then
 traces `count` whole requests with torch.profiler for the device's busy
 share, the top kernels by device time and the device time of the profiler
 ranges the request entered (`PROFILER_RANGES`: the deformable convs'
 `deform_conv`, the DCN units' `dcn_unit`, SEPC's `sepc`, RepPoints'
-`reppoints_refine`, the mask branch's).
+`reppoints_refine`, the mask branch's, TSD's `tsd_pool`, the MaskIoU
+head's).
 Prints one JSON object with the card's name and power limit and how the
 config computes (fp32 without TF32, or bf16 with fp32 islands), as the infer
 CLI and chip_smoke.py run.
@@ -36,19 +41,24 @@ import torch
 from simpledet_torch.eval.postprocess import per_class_nms
 from simpledet_torch.infer import (Detector, card_name_and_power, full_fp32,
                                    precision, synthetic_batch)
-from simpledet_torch.models import dcn, mask_rcnn, reppoints, sepc
+from simpledet_torch.models import (dcn, mask_rcnn, msrcnn, reppoints, sepc,
+                                    tsd)
 from simpledet_torch.models.cascade_rcnn import STAGES, CascadeRcnn
 from simpledet_torch.models.faster_rcnn import RpnOnly
-from simpledet_torch.models.mask_rcnn import MaskFasterRcnn
+from simpledet_torch.models.fpg import FPGNeck, PAFPNNeck
+from simpledet_torch.models.mask_rcnn import MaskFasterRcnn, class_channel
+from simpledet_torch.models.msrcnn import MaskScoringFasterRcnn
 from simpledet_torch.models.reppoints import RepPoints
 from simpledet_torch.models.retinanet import RetinaNet
 from simpledet_torch.models.tridentnet import TridentFasterRcnn
+from simpledet_torch.models.tsd import TSDFasterRcnn
 from simpledet_torch.ops.image import device_normalize
 
 # the models' torch.profiler ranges, each a span over the kernels launched
 # inside it
 PROFILER_RANGES = (mask_rcnn.PROFILER_RANGES + dcn.PROFILER_RANGES
-                   + sepc.PROFILER_RANGES + reppoints.PROFILER_RANGES)
+                   + sepc.PROFILER_RANGES + reppoints.PROFILER_RANGES
+                   + tsd.PROFILER_RANGES + msrcnn.PROFILER_RANGES)
 
 
 def cascade_stages(m, st, im_info):
@@ -200,19 +210,47 @@ def stages(det, images, im_info):
         return [("normalize", norm), ("backbone_fpn", pyramid),
                 ("rpn_head", rpn_head), ("proposals", last_proposals)]
 
+    def backbone():
+        st["feats"] = m.backbone(st["x"].permute(0, 3, 1, 2))
+
+    def neck():
+        st["pyr"] = m.neck(st["feats"])
+
+    def tsd_head():
+        _, _, cls, delta, rois_r = m.head(st["pyr"], st["props"])
+        st["score"], st["boxes"] = m.predict(cls, delta, rois_r, im_info)
+
     def mask_roi_align():
         st["mask_feat"] = m.extract_mask_rois(st["pyr"], st["post"][0])
 
     def mask_head():
-        return (*st["post"], m.mask_probs(st["mask_feat"], st["post"][2]))
+        st["mask_logit"] = class_channel(m.mask_head(st["mask_feat"]),
+                                         st["post"][2])
+        return (*st["post"], torch.sigmoid(st["mask_logit"]))
 
-    middle = (cascade_stages(m, st, im_info) if isinstance(m, CascadeRcnn)
-              else [("roi_align", roi_align), ("box_head", head)])
+    def maskiou_head():
+        return (*st["post"], torch.sigmoid(st["mask_logit"]),
+                m.mask_scores(st["mask_feat"], st["mask_logit"],
+                              st["post"][2], st["post"][1]))
+
+    if isinstance(m.neck, (PAFPNNeck, FPGNeck)):
+        front = [("backbone", backbone), ("neck", neck)]
+    else:
+        front = [("backbone_fpn", pyramid)]
+    if isinstance(m, CascadeRcnn):
+        middle = cascade_stages(m, st, im_info)
+    elif isinstance(m, TSDFasterRcnn):
+        # the TSD head with its two deformable pools, decoded on rois_r
+        middle = [("roi_align", roi_align), ("tsd_head", tsd_head)]
+    else:
+        middle = [("roi_align", roi_align), ("box_head", head)]
     masks = ([("mask_roi_align", mask_roi_align), ("mask_head", mask_head)]
              if isinstance(m, MaskFasterRcnn) else [])
-    return [("normalize", norm), ("backbone_fpn", pyramid),
-            ("rpn_head", rpn_head), ("proposals", proposals), *middle,
-            ("per_class_nms", nms), *masks]
+    if isinstance(m, MaskScoringFasterRcnn):
+        masks.append(("maskiou_head", maskiou_head))
+    return [("normalize", norm), *front, ("rpn_head", rpn_head),
+            ("proposals", proposals), *middle, ("per_class_nms", nms),
+            *masks]
 
 
 def stage_times(steps, count):

@@ -25,13 +25,16 @@ trainer, the loader and the CLIs read. The symbol's components are placed
 under the names of the detector's get_*_symbol arguments in the JAX DSL
 (`ROLES`: `bbox_head_2nd` and `bbox_head_3rd` for CascadeRcnn,
 `mask_roi_extractor`, `mask_head` and `bbox_post_processor` for
-MaskFasterRcnn; RetinaNet, RPN (FCOS's detector too) and
-RepPointsDetector take a backbone, a neck and an `rpn_head`), every one of them, each with every param class it was
+MaskFasterRcnn, and `maskiou_head` before the last for
+MaskScoringFasterRcnn; TSDFasterRcnn takes FasterRcnn's five; RetinaNet,
+RPN (FCOS's detector too) and RepPointsDetector take a backbone, a neck and
+an `rpn_head`), every one of them, each with every param class it was
 given (`MaskFasterRcnn4ConvHead(BboxParam, MaskParam, MaskRoiParam)`); a
 detector without roles there, a component that has no role, or an argument
 given by keyword raises NotImplementedError, except the keywords a detector
 reads (`KEYWORDS`: TridentFasterRcnn's `num_branch`, `scaleaware` and
-`valid_ranges`), which the spec keeps as `options`. A config's subclass of a
+`valid_ranges`, TSDFasterRcnn's `p_tsd`), which the spec keeps as
+`options`. A config's subclass of a
 stand-in detector (`config/rpn_r50v1_fpn_1x.py`'s `class
 _RpnDetector(RPN)`, whose get_*_symbol call `RPN._assemble`) is recorded as
 its stand-in base.
@@ -339,10 +342,18 @@ ROLES = {
     "RepPointsDetector": ("backbone", "neck", "rpn_head"),
     "TridentFasterRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
                           "bbox_head"),
+    "TSDFasterRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
+                      "bbox_head"),
+    # MaskFasterRcnn's, the MaskIoU head before the post processor
+    # (`config/ms_r50v1_fpn_1x.py`)
+    "MaskScoringFasterRcnn": ("backbone", "neck", "rpn_head", "roi_extractor",
+                              "mask_roi_extractor", "bbox_head", "mask_head",
+                              "maskiou_head", "bbox_post_processor"),
 }
 # the keyword arguments of a detector's get_*_symbol that the port reads
 KEYWORDS = {"TridentFasterRcnn": ("num_branch", "scaleaware",
-                                  "valid_ranges")}
+                                  "valid_ranges"),
+            "TSDFasterRcnn": ("p_tsd",)}
 
 
 def place_components(sym):

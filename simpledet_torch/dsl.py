@@ -57,21 +57,38 @@ RpnParam.head.conv_channel, FCOSParam's classes and strides), and
 `RepPointsDetector` takes a `BACKBONES` or DCN FPN backbone, the FCOS neck
 and a `RepPointsHead` (towers head.conv_channel wide, the deformable convs'
 outputs head.point_conv_channel wide).
+The two-stage FPN variants: FasterRcnn on the PAFPN and FPG necks
+(`PAFPNNeck` and `PAFPNNeckP2P6`: PAFPN on P2-P6, `PAFPNNeckP3P7`;
+`FPGNeck`: the grid on P3-P7, `FPGNeckP2P6`; `dim_reduced` wide (256
+unset), `num_stage`, a norm only for a syncbn, localbn or gn normalizer,
+as `_NeckWrapper` gives one: the FPG configs' fixbn template runs them
+without one), whose width the RPN head and the box head then take, and
+with the Double-Head box head `FPNBboxDualHeadSmall` (a norm only for a
+syncbn or gn normalizer, `num_block` convs, 4 unset); `TSDFasterRcnn` with
+a `TSDConvFCBBoxHead` (the BboxParam's `roi_size`, 7 unset; the TSD param
+class's layer counts and widths are not read, as the JAX DSL reads none:
+two fc layers of 1024 a branch) and the pooling param holders
+`FPNRoIAlign_DeltaC` / `FPNRoIAlign_DeltaR` as its roi_extractor (an
+FPNRoiAlign's param class); `MaskScoringFasterRcnn`: MaskFasterRcnn's
+components and a `MaskIoUConvHead(TestParam, BboxParam, MaskParam)` (the
+box head's classes, MaskParam's dtype).
 """
 import torch
 
 from simpledet_torch import resolve_device
-from simpledet_torch.core.config import read_config
+from simpledet_torch.core.config import patch_config_as_nothrow, read_config
 from simpledet_torch.models.cascade_rcnn import (CascadeRcnn,
                                                  is_class_agnostic)
 from simpledet_torch.models.dcn import (C4StrideKeyAdapter, DCNBottleneck,
                                         DCNv2Bottleneck)
 from simpledet_torch.models.faster_rcnn import FasterRcnn, RpnOnly
 from simpledet_torch.models.fcos import FCOS, FCOSHead, FCOSSubnets
+from simpledet_torch.models.fpg import LEVELS_P3P7, FPGNeck, PAFPNNeck
 from simpledet_torch.models.fpn import FPNNeck, Neck
 from simpledet_torch.models.freeanchor import FreeAnchorRetinaNetHead
-from simpledet_torch.models.heads import Bbox2fcHead
+from simpledet_torch.models.heads import Bbox2fcHead, BboxDualHeadSmall
 from simpledet_torch.models.mask_rcnn import MaskFasterRcnn, MaskHead4Conv
+from simpledet_torch.models.msrcnn import MaskIoUHead, MaskScoringFasterRcnn
 from simpledet_torch.models.nasfpn import NASFPNNeck, TopDownBottomUpFPNNeck
 from simpledet_torch.models.norm import normalizer_factory
 from simpledet_torch.models.reppoints import (RepPoints, RepPointsHead,
@@ -83,6 +100,7 @@ from simpledet_torch.models.rpn import FPNRpnHead, RpnConvHead
 from simpledet_torch.models.sepc import SEPCFPN, SEPCNeck, SEPCSubnets
 from simpledet_torch.models.tridentnet import (BboxC5Head, TridentFasterRcnn,
                                                TridentResNetC4)
+from simpledet_torch.models.tsd import TSDBboxHead, TSDFasterRcnn
 
 # the JAX DSL's FPN backbone classes (`simpledet_tpu/dsl.py:50-72`):
 # name -> (depth, ResNet variant)
@@ -105,21 +123,34 @@ RETINA_NECKS = ("RetinaNetNeck", "RetinaNetNeckWithBN", "NASFPNNeck",
 RETINA_HEADS = ("RetinaNetHead", "RetinaNetHeadWithBN",
                 "RetinaNetHeadWithBNWithSEPC", "FreeAnchorRetinaNetHead")
 FPN_HYBRIDS = ("DCNResNetFPN", "DCNv2ResNetFPN")
+# the PAFPN and FPG necks (`simpledet_tpu/dsl.py:900-912`): name -> (the
+# module, its levels, its num_stage unset)
+FPG_NECKS = {"PAFPNNeck": (PAFPNNeck, None, 2),
+             "PAFPNNeckP2P6": (PAFPNNeck, None, 2),
+             "PAFPNNeckP3P7": (PAFPNNeck, LEVELS_P3P7, 2),
+             "FPGNeck": (FPGNeck, LEVELS_P3P7, 5),
+             "FPGNeckP2P6": (FPGNeck, None, 5)}
 _COMMON = {"backbone": tuple(BACKBONES), "neck": ("FPNNeck",),
            "rpn_head": ("FPNRpnHead",), "roi_extractor": ("FPNRoiAlign",)}
 _CASCADE_HEAD = ("CascadeBbox2fcHead",)
+_MASK = dict(_COMMON, rpn_head=("MaskFPNRpnHead",),
+             mask_roi_extractor=("FPNRoiAlign",),
+             bbox_head=("FPNBbox2fcHead",),
+             mask_head=("MaskFasterRcnn4ConvHead",),
+             bbox_post_processor=("BboxPostProcessor",))
 # detector -> role -> the component classes the port builds for it
 SUPPORTED = {
     "FasterRcnn": dict(_COMMON, backbone=tuple(BACKBONES) + FPN_HYBRIDS,
-        bbox_head=("FPNBbox2fcHead", "Bbox2fcHead")),
+        neck=("FPNNeck",) + tuple(FPG_NECKS),
+        bbox_head=("FPNBbox2fcHead", "Bbox2fcHead", "FPNBboxDualHeadSmall")),
+    "TSDFasterRcnn": dict(_COMMON, roi_extractor=(
+        "FPNRoiAlign", "FPNRoIAlign_DeltaC", "FPNRoIAlign_DeltaR"),
+        bbox_head=("TSDConvFCBBoxHead",)),
     "CascadeRcnn": dict(_COMMON, bbox_head=_CASCADE_HEAD,
                         bbox_head_2nd=_CASCADE_HEAD,
                         bbox_head_3rd=_CASCADE_HEAD),
-    "MaskFasterRcnn": dict(_COMMON, rpn_head=("MaskFPNRpnHead",),
-                           mask_roi_extractor=("FPNRoiAlign",),
-                           bbox_head=("FPNBbox2fcHead",),
-                           mask_head=("MaskFasterRcnn4ConvHead",),
-                           bbox_post_processor=("BboxPostProcessor",)),
+    "MaskFasterRcnn": _MASK,
+    "MaskScoringFasterRcnn": dict(_MASK, maskiou_head=("MaskIoUConvHead",)),
     "RetinaNet": {"backbone": tuple(BACKBONES), "neck": RETINA_NECKS,
                   "rpn_head": RETINA_HEADS},
     "RPN": {"backbone": tuple(BACKBONES) + tuple(C4_BACKBONES),
@@ -170,6 +201,44 @@ def _box_head(p, in_features, class_agnostic):
     return Bbox2fcHead(p.num_class, num_reg, in_features, dtype=_dtype(p))
 
 
+def _fpn_box_head(comp, width, roi_size):
+    """The box head of a Faster R-CNN-style detector on a `width`-wide
+    pyramid: Bbox2fcHead, BboxDualHeadSmall or TSDBboxHead."""
+    p = comp.param
+    agnostic = p.regress_target.class_agnostic or False
+    num_reg = 2 if agnostic else p.num_class
+    if comp.name == "FPNBboxDualHeadSmall":
+        n = p.normalizer
+        norm = (normalizer_factory(n.type) if n is not None and n.type in
+                ("syncbn", "gn") else None)
+        return BboxDualHeadSmall(p.num_class, num_reg, width, roi_size,
+                                 num_block=p.num_block or 4, norm=norm,
+                                 dtype=_dtype(p))
+    if comp.name == "TSDConvFCBBoxHead":
+        return TSDBboxHead(p.num_class, num_reg, width, p.roi_size or 7,
+                           dtype=_dtype(p))
+    return _box_head(p, roi_size ** 2 * width, agnostic)
+
+
+def _fpn_neck(comp, in_channels):
+    """(neck, its width) of a two-stage FPN detector: FPNNeck (256 wide) or
+    a PAFPN / FPG neck (fp32 only)."""
+    p = comp.param
+    if comp.name not in FPG_NECKS:
+        return FPNNeck(in_channels, 256, dtype=_dtype(p)), 256
+    if _dtype(p) != torch.float32:
+        raise NotImplementedError(f"the bf16 {comp.name} (NeckParam sets "
+                                  "fp16) is not ported yet")
+    module, levels, num_stage = FPG_NECKS[comp.name]
+    n = p.normalizer
+    norm = (normalizer_factory(n.type) if n is not None and n.type in
+            ("syncbn", "localbn", "gn") else None)
+    filters = p.dim_reduced or 256
+    kw = {"levels": levels} if levels else {}
+    return module(in_channels, filters, p.num_stage or num_stage, norm=norm,
+                  **kw), filters
+
+
 def _mask_head(comp):
     """MaskHead4Conv from MaskFasterRcnn4ConvHead(BboxParam, MaskParam,
     MaskRoiParam): BboxParam's classes, MaskParam's width."""
@@ -178,6 +247,14 @@ def _mask_head(comp):
         raise NotImplementedError("the bf16 mask head (MaskParam.fp16) is "
                                   "not ported yet")
     return MaskHead4Conv(p_bbox.num_class, 256, p_mask.dim_reduced or 256)
+
+
+def _maskiou_head(comp, p_mask_roi):
+    """MaskIoUHead from MaskIoUConvHead(TestParam, BboxParam, MaskParam):
+    BboxParam's classes, MaskParam's dtype, the mask rois' size."""
+    _, p_bbox, p_mask = comp.params[:3]
+    return MaskIoUHead(p_bbox.num_class, 256, p_mask_roi.out_size or 14,
+                       dtype=_dtype(p_mask))
 
 
 def _retina_neck(comp, in_channels):
@@ -321,21 +398,20 @@ def build_detector(spec, *, depth=None):
     if c4 != (comps["neck"].name == "Neck"):
         raise NotImplementedError(f"{comps['neck'].name} on the backbone "
                                   f"{comps['backbone'].name}")
-    neck = Neck() if c4 else FPNNeck(backbone.out_channels, 256,
-                                     dtype=_dtype(comps["neck"].param))
+    neck, width = ((Neck(), backbone.out_channels) if c4 else
+                   _fpn_neck(comps["neck"], backbone.out_channels))
     p_rpn = comps["rpn_head"].param
     # as dsl.FPNRpnHead does: the conv head reads the dtype set here
     p_rpn.dtype = _dtype(p_rpn)
     rpn = FPNRpnHead(p_rpn)
     rpn_module = RpnConvHead(rpn.num_anchor, p_rpn.head.conv_channel or 256,
-                             backbone.out_channels if c4 else 256,
-                             dtype=p_rpn.dtype)
+                             width, dtype=p_rpn.dtype)
     if spec.detector == "RPN":
         return RpnOnly(backbone, neck, rpn_module, rpn)
     if spec.detector == "TridentFasterRcnn":
         return _trident(spec, backbone, rpn_module, rpn, depth)
     p_roi = comps["roi_extractor"].param
-    in_features = p_roi.out_size ** 2 * 256
+    in_features = p_roi.out_size ** 2 * width
     if spec.detector == "CascadeRcnn":
         p_bboxes = [comps[r].param for r in ("bbox_head", "bbox_head_2nd",
                                              "bbox_head_3rd")]
@@ -344,15 +420,23 @@ def build_detector(spec, *, depth=None):
         return CascadeRcnn(backbone, neck, rpn_module, rpn, heads, p_roi,
                            p_bboxes)
     p_bbox = comps["bbox_head"].param
-    bbox_head = _box_head(p_bbox, in_features,
-                          p_bbox.regress_target.class_agnostic or False)
-    if spec.detector == "MaskFasterRcnn":
+    bbox_head = _fpn_box_head(comps["bbox_head"], width, p_roi.out_size)
+    if spec.detector in ("MaskFasterRcnn", "MaskScoringFasterRcnn"):
         post = comps.get("bbox_post_processor")
-        return MaskFasterRcnn(
-            backbone, neck, rpn_module, rpn, bbox_head,
-            _mask_head(comps["mask_head"]), p_roi, p_bbox,
-            comps["mask_head"].params[1], comps["mask_roi_extractor"].param,
-            post.param if post else None)
+        args = (backbone, neck, rpn_module, rpn, bbox_head,
+                _mask_head(comps["mask_head"]), p_roi, p_bbox,
+                comps["mask_head"].params[1],
+                comps["mask_roi_extractor"].param, post.param if post
+                else None)
+        if spec.detector == "MaskFasterRcnn":
+            return MaskFasterRcnn(*args)
+        return MaskScoringFasterRcnn(*args, maskiou_head=_maskiou_head(
+            comps["maskiou_head"], comps["mask_roi_extractor"].param))
+    if spec.detector == "TSDFasterRcnn":
+        p_tsd = (spec.options or {}).get("p_tsd") or p_bbox.TSD
+        return TSDFasterRcnn(backbone, neck, rpn_module, rpn, bbox_head,
+                             p_roi, p_bbox,
+                             p_tsd=patch_config_as_nothrow(p_tsd))
     return FasterRcnn(backbone, neck, rpn_module, rpn, bbox_head, p_roi,
                       p_bbox)
 

@@ -1,6 +1,6 @@
-"""2fc box head, its loss and its test-time prediction (counterpart of
-simpledet_tpu/models/heads.py::Bbox2fcHead, bbox_head_loss and
-bbox_head_predict).
+"""2fc box head, the Double-Head box head, the loss and the test-time
+prediction (counterpart of simpledet_tpu/models/heads.py::Bbox2fcHead,
+BboxDualHeadSmall, bbox_head_loss and bbox_head_predict).
 
 RoI features arrive as [B, R, P, P, C] and are flattened in HWC order, as in
 the JAX package, so fc1's weight is the transposed Flax kernel. fc1 and fc2
@@ -12,7 +12,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from simpledet_torch.models.init import fan_in_uniform_, normal_
-from simpledet_torch.models.layers import linear
+from simpledet_torch.models.layers import conv2d, linear
 from simpledet_torch.ops.bbox import clip_boxes, decode_boxes
 from simpledet_torch.ops.losses import smooth_l1
 
@@ -43,6 +43,71 @@ class Bbox2fcHead(nn.Module):
         normal_(self.cls_logit.weight, 0.01, gen)
         normal_(self.bbox_delta.weight, 0.001, gen)
         for m in (self.fc1, self.fc2, self.cls_logit, self.bbox_delta):
+            m.bias.zero_()
+
+
+class BboxDualHeadSmall(nn.Module):
+    """The Double-Head box head: roi_feat [B, R, P, P, C] -> (cls_logit
+    [B, R, num_class] from two fc layers of 1024 on the flattened features,
+    bbox_delta [B, R, 4 * num_reg_class] from num_block 3 x 3 convs of 256 on
+    the roi's map, flattened into a dense layer). With a norm, each fc and
+    each conv is followed by it: an fc layer's [B, R, 1024] output is normed
+    as a [B, 1024, R] map, as Flax norms a dense output's last axis (batch
+    statistics over B and R; GroupNorm per image over R). The layers run in
+    the head's compute dtype, the logits and deltas in fp32."""
+
+    def __init__(self, num_class, num_reg_class, in_channels=256, roi_size=7,
+                 num_block=4, norm=None, dtype=torch.float32):
+        super().__init__()
+        hidden = 1024
+        for i in (1, 2):
+            self.add_module(f"cls_fc{i}", linear(
+                in_channels * roi_size ** 2 if i == 1 else hidden, hidden,
+                compute_dtype=dtype))
+            if norm is not None:
+                self.add_module(f"cls_fc{i}_norm", norm(hidden))
+        self.cls_logit = nn.Linear(hidden, num_class)
+        self.num_block = num_block
+        for i in range(1, num_block + 1):
+            self.add_module(f"reg_block{i}", conv2d(
+                in_channels if i == 1 else 256, 256, 3, padding=1,
+                compute_dtype=dtype))
+            if norm is not None:
+                self.add_module(f"reg_block{i}_norm", norm(256))
+        self.bbox_delta = nn.Linear(256 * roi_size ** 2, 4 * num_reg_class)
+
+    def _norm(self, name, x):
+        norm = getattr(self, f"{name}_norm", None)
+        return x if norm is None else norm(x)
+
+    def forward(self, roi_feat):
+        b, r, p, _, c = roi_feat.shape
+        cls = roi_feat.reshape(b, r, -1)
+        for i in (1, 2):
+            cls = getattr(self, f"cls_fc{i}")(cls)
+            cls = self._norm(f"cls_fc{i}", cls.transpose(1, 2)).transpose(1, 2)
+            cls = F.relu(cls)
+        # the NHWC rows viewed as NCHW in channels_last memory, at no cost
+        reg = roi_feat.reshape(b * r, p, p, c).permute(0, 3, 1, 2)
+        for i in range(1, self.num_block + 1):
+            reg = F.relu(self._norm(f"reg_block{i}",
+                                    getattr(self, f"reg_block{i}")(reg)))
+        reg = reg.permute(0, 2, 3, 1).reshape(b, r, -1)
+        return self.cls_logit(cls.float()), self.bbox_delta(reg.float())
+
+    @torch.no_grad()
+    def init_weights(self, gen):
+        for i in (1, 2):
+            m = getattr(self, f"cls_fc{i}")
+            fan_in_uniform_(m.weight, gen)
+            m.bias.zero_()
+        normal_(self.cls_logit.weight, 0.01, gen)
+        for i in range(1, self.num_block + 1):
+            m = getattr(self, f"reg_block{i}")
+            normal_(m.weight, 0.01, gen)
+            m.bias.zero_()
+        normal_(self.bbox_delta.weight, 0.001, gen)
+        for m in (self.cls_logit, self.bbox_delta):
             m.bias.zero_()
 
 

@@ -148,10 +148,16 @@ class MaskFasterRcnn(FasterRcnn):
         thr, nms_thr, max_det = self.nms_params(score_thr)
         boxes, scores, cls, valid = per_class_nms(
             score, boxes, score_thr=thr, nms_thr=nms_thr, max_det=max_det)
-        mask_feat = self.extract_mask_rois(pyr, boxes)
-        return {"cls_score": scores, "bbox_xyxy": boxes, "cls": cls,
-                "det_valid": valid, "mask_prob": self.mask_probs(mask_feat,
-                                                                 cls)}
+        out = {"cls_score": scores, "bbox_xyxy": boxes, "cls": cls,
+               "det_valid": valid}
+        out.update(self.mask_outputs(pyr, out))
+        return out
+
+    def mask_outputs(self, pyr, det):
+        """The mask branch's test outputs on the kept boxes of `det`
+        ({"bbox_xyxy", "cls", ...}): {"mask_prob" [B, D, M, M]}."""
+        mask_feat = self.extract_mask_rois(pyr, det["bbox_xyxy"])
+        return {"mask_prob": self.mask_probs(mask_feat, det["cls"])}
 
     def train_losses(self, data, im_info, gt_bbox, gt_poly, generator):
         """(losses, aux): FasterRcnn's, plus "mask_loss" and aux
@@ -160,6 +166,15 @@ class MaskFasterRcnn(FasterRcnn):
             raise ValueError("MaskFasterRcnn's train mode needs gt_poly")
         pyr, sample, losses, aux = self.box_branch(data, im_info, gt_bbox,
                                                    generator)
+        _, targets, _, _, losses["mask_loss"] = self.mask_branch(
+            pyr, sample, gt_poly)
+        aux["mask_target"] = targets
+        return losses, aux
+
+    def mask_branch(self, pyr, sample, gt_poly):
+        """The train forward's mask branch on the sample's first num_fg
+        rows: (their rois, their mask targets, their mask features, the
+        logits of each row's class [B, num_fg, M, M], mask_loss)."""
         nf = self.num_fg
         rois = sample["rois"][:, :nf].contiguous()
         with torch.no_grad(), record_function("mask_targets"):
@@ -171,9 +186,8 @@ class MaskFasterRcnn(FasterRcnn):
         with record_function("mask_head"):
             logit = class_channel(self.mask_head(mask_feat),
                                   sample["label"][:, :nf])
-            losses["mask_loss"] = sigmoid_cross_entropy(logit, targets)
-        aux["mask_target"] = targets
-        return losses, aux
+            loss = sigmoid_cross_entropy(logit, targets)
+        return rois, targets, mask_feat, logit, loss
 
     def init_weights(self, gen):
         super().init_weights(gen)

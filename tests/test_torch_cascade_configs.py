@@ -17,6 +17,7 @@ from simpledet_torch.core.config import read_config
 from simpledet_torch.dsl import build_detector
 from simpledet_torch.models.cascade_rcnn import CascadeRcnn
 from simpledet_torch.weights import flax_path, from_flax
+from tmp_cleanup import collect_tmp_path, module_tmp_dirs  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASCADE = "config/cascade_r50v1_fpn_1x.py"

@@ -21,6 +21,7 @@ from simpledet_torch.core import checkpoint as ckpt
 from simpledet_torch.core.config import read_config
 from simpledet_torch.dsl import build_detector
 from simpledet_torch.weights import from_flax
+from tmp_cleanup import collect_tmp_path, module_tmp_dirs  # noqa: F401
 
 FLAGSHIP = "config/faster_r50v1_fpn_1x.py"
 

@@ -23,6 +23,7 @@ from simpledet_torch.data.transforms import from_config
 from simpledet_torch.dsl import build_detector
 from simpledet_torch.models.norm import fold_batch_stats
 from simpledet_torch.ops.image import device_normalize
+from tmp_cleanup import collect_tmp_path, module_tmp_dirs  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = os.path.join(REPO, "config", "micro_test.py")
@@ -42,10 +43,11 @@ def _two_torch_threads():
 
 
 @pytest.fixture(scope="module")
-def micro(tmp_path_factory):
+def micro(tmp_path_factory, module_tmp_dirs):
     """The micro-COCO; its val set and annotations cut to the 4 landscape
     images (one padded shape, so the JAX side compiles one forward)."""
     root = tmp_path_factory.mktemp("micro")
+    module_tmp_dirs.append(root)
     _, ann_path = make_micro_dataset(str(root), n_images=8)
     with open(root / "cache" / "micro_val.roidb", "rb") as f:
         val = [r for r in pickle.load(f) if r["h"] < r["w"]]

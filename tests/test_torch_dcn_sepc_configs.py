@@ -8,7 +8,7 @@
   cells, S0 kernel and norm, SEPC's PConv count, deformable parts and iBN
   (the neck's Flax leaves against the port's, from `jax.eval_shape`), the
   subnets' norm and width, and the fixed parameters.
-- `python -m simpledet_torch.config_coverage` counts 121 of 152 config
+- `python -m simpledet_torch.config_coverage` counts 132 of 152 config
   files built (in a process of its own: configs read the environment).
 - config/converge_sepc.py and config/converge_nasfpn.py through the port's
   train CLI (2 iterations): their `.params` and `.batch_stats` leaves are
@@ -32,6 +32,7 @@ from simpledet_torch.models.norm import FrozenBN, SyncBN
 from simpledet_torch.models.retinanet import RetinaNetNeck, RetinaSubnets
 from simpledet_torch.models.sepc import SEPCNeck, SEPCSubnets
 from simpledet_torch.weights import flax_path
+from tmp_cleanup import collect_tmp_path, module_tmp_dirs  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -193,9 +194,10 @@ def test_config_builds_what_the_jax_reader_builds(path, is_train):
 def test_coverage_probe_counts_110_of_152():
     """`python -m simpledet_torch.config_coverage --list`, in a process of
     its own with only PATH and PYTHONPATH set (a config reads the
-    environment: `config/micro_test.py` picks its backbone from it): 121
+    environment: `config/micro_test.py` picks its backbone from it): 132
     of the 152 config files build in both modes (110 before FCOS,
-    RepPoints and FreeAnchor), this family's 21 among them."""
+    RepPoints and FreeAnchor, 121 before the two-stage FPN variants), this
+    family's 21 among them."""
     import subprocess
     import sys
 
@@ -204,17 +206,18 @@ def test_coverage_probe_counts_110_of_152():
         [sys.executable, "-m", "simpledet_torch.config_coverage", "--list"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("121 of 152 config files read and build "
+    assert out.stdout.startswith("132 of 152 config files read and build "
                                  "in both modes"), out.stdout
     for path in CONFIGS:
         assert f" {path}\n" not in out.stdout, path
 
 
 @pytest.fixture(scope="module")
-def micro(tmp_path_factory):
+def micro(tmp_path_factory, module_tmp_dirs):
     from simpledet_torch.data.synthetic import make_micro_dataset
 
     root = tmp_path_factory.mktemp("converge")
+    module_tmp_dirs.append(root)
     make_micro_dataset(str(root), n_images=8, set_names=("converge_train",))
     return root
 

@@ -403,17 +403,22 @@ def setup(request):
     data = _normalised(s)
 
     def loss_fn(params):
+        # the pyramid and every offset conv's outputs of the same forward,
+        # captured: the JAX side compiles once a kind
         kw = {} if s["kind"] in RETINA else {"rngs": {"sampling": SEED_KEY}}
-        losses, aux = s["jmodel"].apply(
+        (losses, aux), inter = s["jmodel"].apply(
             {"params": params}, data, jnp.asarray(s["im_info"]),
-            jnp.asarray(s["gt"]), mode="train", **kw)
-        return sum(losses.values()), (losses, aux)
+            jnp.asarray(s["gt"]), mode="train",
+            capture_intermediates=lambda mdl, _: mdl.name in (
+                "neck", "offset_conv"), mutable=["intermediates"], **kw)
+        return sum(losses.values()), (losses, aux, inter["intermediates"])
 
     s["loss_and_grad"] = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    (_, (losses, aux)), grads = s["loss_and_grad"](s["params"])
+    (_, (losses, aux, inter)), grads = s["loss_and_grad"](s["params"])
     s["want"] = (jax.tree.map(np.asarray, losses),
                  jax.tree.map(np.asarray, aux),
                  dict(_flat(jax.tree.map(np.asarray, grads))))
+    s["captured"] = jax.tree.map(np.asarray, inter)
     yield s
     mp.undo()
 
@@ -451,27 +456,21 @@ def torch_step(setup):
 @pytest.fixture(scope="module")
 def jax_features(setup):
     """The JAX pyramid and every offset conv's outputs ({'/'-joined module
-    path: (output, ...)}) on the batch."""
-    s = setup
-
-    def run(p, x):
-        return s["jmodel"].apply(
-            {"params": p}, x, method=lambda m, d: m.neck(m.backbone(d)),
-            capture_intermediates=lambda mdl, _: mdl.name == "offset_conv",
-            mutable=["intermediates"])
-
-    feats, inter = jax.jit(run)(s["params"], _normalised(s))
+    path: (output, ...)}) on the batch, captured by the train forward of
+    `setup`."""
+    captured = setup["captured"]
     offsets = {}
 
     def walk(tree, path):
         for k, v in tree.items():
             if k == "__call__":
-                offsets["/".join(path)] = tuple(np.asarray(o) for o in v)
+                if path[-1] == "offset_conv":
+                    offsets["/".join(path)] = tuple(v)
             else:
                 walk(v, path + (k,))
 
-    walk(inter.get("intermediates", {}), ())
-    return jax.tree.map(np.asarray, feats), offsets
+    walk(captured, ())
+    return captured["neck"]["__call__"][0], offsets
 
 
 # ------------------------------------------------------------ train step

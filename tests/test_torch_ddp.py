@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from simpledet_torch.parallel import dist
+from tmp_cleanup import collect_tmp_path, module_tmp_dirs  # noqa: F401
 
 CONFIG = "config/converge_test.py"
 STEPS, H, W = 2, 128, 192
@@ -117,8 +118,9 @@ def rank_main(out_dir):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(tmp_path_factory, module_tmp_dirs):
     out = tmp_path_factory.mktemp("ddp")
+    module_tmp_dirs.append(out)
     code = ("import sys; sys.path.insert(0, {!r}); import test_torch_ddp; "
             "test_torch_ddp.rank_main({!r})").format(
                 os.path.join(REPO, "tests"), str(out))

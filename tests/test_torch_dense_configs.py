@@ -9,7 +9,7 @@
   the port's (from `jax.eval_shape`), the classes, strides and point
   transform, the moment transfer, the multi-scale train chain and the
   fixed parameters.
-- `python -m simpledet_torch.config_coverage` counts 121 of 152 config
+- `python -m simpledet_torch.config_coverage` counts 132 of 152 config
   files built (in a process of its own: configs read the environment).
 - The three learning recipes through the port's train CLI (2 iterations):
   their `.params` and `.batch_stats` leaves are the JAX model's, at their
@@ -33,6 +33,7 @@ from simpledet_torch.models.norm import FrozenBN, SyncBN
 from simpledet_torch.models.reppoints import RepPoints
 from simpledet_torch.models.retinanet import RetinaNet
 from simpledet_torch.weights import SHARED_KERNELS, flax_path
+from tmp_cleanup import collect_tmp_path, module_tmp_dirs  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STRIDES = (8, 16, 32, 64, 128)
@@ -153,8 +154,9 @@ def test_config_builds_what_the_jax_reader_builds(path, is_train):
 def test_coverage_probe_counts_121_of_152():
     """`python -m simpledet_torch.config_coverage --list`, in a process of
     its own with only PATH and PYTHONPATH set (a config reads the
-    environment: `config/micro_test.py` picks its backbone from it): 121
-    of the 152 config files build in both modes, these 11 among them."""
+    environment: `config/micro_test.py` picks its backbone from it): 132
+    of the 152 config files build in both modes (121 before the two-stage
+    FPN variants), these 11 among them."""
     import subprocess
     import sys
 
@@ -163,17 +165,18 @@ def test_coverage_probe_counts_121_of_152():
         [sys.executable, "-m", "simpledet_torch.config_coverage", "--list"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("121 of 152 config files read and build "
+    assert out.stdout.startswith("132 of 152 config files read and build "
                                  "in both modes"), out.stdout
     for path in CONFIGS:
         assert f" {path}\n" not in out.stdout, path
 
 
 @pytest.fixture(scope="module")
-def micro(tmp_path_factory):
+def micro(tmp_path_factory, module_tmp_dirs):
     from simpledet_torch.data.synthetic import make_micro_dataset
 
     root = tmp_path_factory.mktemp("converge")
+    module_tmp_dirs.append(root)
     make_micro_dataset(str(root), n_images=8, set_names=("converge_train",))
     return root
 

@@ -325,26 +325,24 @@ def setup(request):
     data = _normalised(s)
 
     def loss_fn(params):
-        losses, aux = s["jmodel"].apply(
+        # the pyramid and the head outputs of the same forward, captured:
+        # the JAX side compiles once a kind
+        (losses, aux), inter = s["jmodel"].apply(
             {"params": params}, data, jnp.asarray(s["im_info"]),
-            jnp.asarray(s["gt"]), mode="train")
-        return sum(losses.values()), (losses, aux)
-
-    def pyramid_and_heads(m, d):
-        pyramid = m.neck(m.backbone(d))
-        return pyramid, m.head_module(pyramid)
-
-    def head_outputs(params):
-        return s["jmodel"].apply({"params": params}, data,
-                                 method=pyramid_and_heads)
+            jnp.asarray(s["gt"]), mode="train",
+            capture_intermediates=lambda mdl, _: mdl.name in (
+                "neck", "head_module"), mutable=["intermediates"])
+        inter = inter["intermediates"]
+        outs = (inter["neck"]["__call__"][0],
+                inter["head_module"]["__call__"][0])
+        return sum(losses.values()), (losses, aux, outs)
 
     s["loss_and_grad"] = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    (_, (losses, aux)), grads = s["loss_and_grad"](s["params"])
+    (_, (losses, aux, outs)), grads = s["loss_and_grad"](s["params"])
     s["want"] = (jax.tree.map(np.asarray, losses),
                  jax.tree.map(np.asarray, aux),
                  dict(_flat(jax.tree.map(np.asarray, grads))))
-    s["pyramid"], s["head_outputs"] = jax.tree.map(
-        np.asarray, jax.jit(head_outputs)(s["params"]))
+    s["pyramid"], s["head_outputs"] = jax.tree.map(np.asarray, outs)
     return s
 
 

@@ -110,6 +110,21 @@ def test_reading_and_building_imports_no_jax():
         "        with torch.device('meta'):\n"
         "            net = build_detector(spec, depth=18)\n"
         "        assert type(net).__name__ == kind, cfg\n"
+        # the two-stage FPN variants: PAFPN / FPG, the dual head, Mask
+        # Scoring R-CNN and TSD, at depth 18 on the meta device
+        "import simpledet_torch.models.fpg, simpledet_torch.models.msrcnn\n"
+        "import simpledet_torch.models.tsd\n"
+        "import simpledet_torch.ops.deform_roi_align\n"
+        "for cfg, kind in (('FPG/faster_r50v1b_fpg6_256_syncbn_1x', "
+        "'FasterRcnn'), ('FPG/faster_r50v1b_pafpn3_384_syncbn_1x', "
+        "'FasterRcnn'), ('resnet_v1b/faster_r50v1b_fpn_dualheadsmall_1x', "
+        "'FasterRcnn'), ('ms_r50v1_fpn_1x', 'MaskScoringFasterRcnn'), "
+        "('TSD/tsd_r50v1_fpn_1x', 'TSDFasterRcnn')):\n"
+        "    for tr in (False, True):\n"
+        "        spec = read_config(f'config/{cfg}.py', tr)\n"
+        "        with torch.device('meta'):\n"
+        "            net = build_detector(spec, depth=18)\n"
+        "        assert type(net).__name__ == kind, cfg\n"
         "for variant in ('v1b', 'v1d'):\n"
         "    os.environ['SIMPLEDET_MICRO_BACKBONE'] = variant\n"
         "    net = build_detector(read_config('config/micro_test.py', True))\n"

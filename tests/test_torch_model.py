@@ -306,16 +306,16 @@ def test_flagship_config_builds_and_maps_all_leaves():
 
 @pytest.mark.parametrize("path,what", [
     # detectors whose components the reader has no roles for (FCOS on the
-    # RPN detector and FreeAnchor's head are read and built since they
-    # were ported)
-    ("config/TSD/tsd_r50v1_fpn_1x.py", "TSDFasterRcnn"),
+    # RPN detector, FreeAnchor's head, TSD and Mask Scoring R-CNN are read
+    # and built since they were ported)
+    ("config/crowdhuman/faster_emd_r50v1_fpn_1x.py", "DoublePredRcnn"),
     ("config/crowdhuman/doublepred_r50v1b_fpn_1x.py", "DoublePredRcnn"),
-    # Mask-Scoring R-CNN: a detector whose components the reader has no
-    # roles for (Mask R-CNN itself is read and built since it was ported)
-    ("config/ms_r50v1_fpn_1x.py", "MaskScoringFasterRcnn"),
-    # a neck the port does not have (the DCN backbones, on the C4 and FPN
-    # detectors, are read and built since they were ported)
-    ("config/FPG/faster_r50v1b_fpg6_128_syncbn_1x.py", "FPGNeckP2P6"),
+    # a backbone the port does not have
+    ("config/efficientnet/efficientnet_b5_fpn_bn_scratch_400_12x.py",
+     "EfficientNetB5FPN"),
+    # a mask head the port does not have (the DCN backbones and the PAFPN
+    # and FPG necks are read and built since they were ported)
+    ("config/se/mask_se_r50v1_fpn_1x.py", "MaskRcnnSe4convHead"),
     # a config template that the port's copy does not hold
     ("config/cascade_r50v2_c5_red_1x.py", "cascade_c5_red_config"),
     # a detector whose components the reader has no roles for: it raises

@@ -695,12 +695,13 @@ def test_retina_config_maps_every_leaf_of_the_jax_model():
 
 @pytest.mark.parametrize("path,what", [
     # (SEPC and the NAS-FPN necks and FreeAnchor's head are read and built
-    # since they were ported): RetinaNet backbones the port does not have,
-    # and two more components it does not have, a PAFPN neck and the SE
-    # backbone
+    # since they were ported, the PAFPN neck since the two-stage FPN
+    # variants were): RetinaNet backbones the port does not have, and one
+    # more component it does not have, the SE backbone
     ("config/efficientnet/efficientnet_b5_fpn_bn_scratch_400_6x.py",
      "EfficientNetB5FPN"),
-    ("config/FPG/faster_r50v1b_pafpn3_256_syncbn_1x.py", "PAFPNNeck"),
+    ("config/efficientnet/efficientnet_b5_fpn_bn_scratch_400_9x.py",
+     "EfficientNetB5FPN"),
     ("config/se/mask_se-r50v1b_fpn_bn_scratch_2x.py", "SEResNetFPN"),
     ("config/efficientnet/retina_effb4_fpn_1x.py", "EfficientNetB4FPN"),
 ])

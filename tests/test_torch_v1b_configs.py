@@ -17,6 +17,7 @@ import torch
 from simpledet_torch.core.config import read_config
 from simpledet_torch.dsl import BACKBONES, build_detector
 from simpledet_torch.models.norm import FrozenBN, GroupNorm, SyncBN
+from tmp_cleanup import collect_tmp_path, module_tmp_dirs  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V1B = "config/resnet_v1b"
@@ -92,8 +93,11 @@ def test_config_builds_what_the_jax_reader_builds(path, is_train):
 
 @pytest.mark.parametrize("path,missing", [
     ("config/se/mask_se-r50v1b_fpn_bn_scratch_2x.py", "SEResNetFPN"),
-    (f"{V1B}/ms_r50v1b_fpn_1x.py", "MaskScoring"),
-    (f"{V1B}/faster_r50v1b_fpn_dualheadsmall_1x.py", "FPNBboxDualHeadSmall"),
+    # (Mask Scoring R-CNN and the Double-Head box head are read and built
+    # since they were ported)
+    ("config/crowdhuman/doublepred_r50v1b_fpn_1x_refine.py",
+     "DoublePredRcnn"),
+    ("config/kd/faster_r50v1b_fpn_2x_fitnet_g5.py", "FitNetFasterRcnn"),
 ])
 def test_configs_with_an_unported_component_raise_naming_it(path, missing):
     with pytest.raises(NotImplementedError, match=missing):
@@ -103,8 +107,10 @@ def test_configs_with_an_unported_component_raise_naming_it(path, missing):
 
 
 @pytest.mark.parametrize("path,missing", [
-    ("config/FPG/faster_r50v1b_fpg6_128_syncbn_1x.py", "FPGNeckP2P6"),
-    ("config/FPG/faster_r50v1b_pafpn3_256_syncbn_1x.py", "PAFPNNeck"),
+    # (the FPG configs, which import it too, are read and built since the
+    # PAFPN and FPG necks were ported)
+    ("config/kd/faster_kd_r50v1_fpn_1x.py", "FitNetFasterRcnn"),
+    ("config/kd/retina_r50v1b_fpn_2x_fitnet_g10.py", "FitNetRetinaNet"),
     ("config/kd/faster_r50v1b_fpn_1x_fitnet_g5.py", "FitNetFasterRcnn"),
     ("config/kd/retina_r50v1b_fpn_1x_fitnet_g10.py", "FitNetRetinaNet"),
     ("config/crowdhuman/faster_r50v1b_fpn_1x.py", "FPNRpnHeadwithIgnore"),
@@ -160,10 +166,11 @@ def test_config_coverage_probe(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def micro(tmp_path_factory):
+def micro(tmp_path_factory, module_tmp_dirs):
     from fixtures import make_micro_dataset
 
     root = tmp_path_factory.mktemp("micro")
+    module_tmp_dirs.append(root)
     make_micro_dataset(str(root), n_images=8)
     return root
 
